@@ -1,0 +1,160 @@
+"""The configuration surface (a copy of ``koopmanx/configs.py:18-231``).
+
+The port keeps its own copy of the dataclasses so that it imports nothing
+of ``koopmanx``. Field names and defaults are the JAX package's; fields of
+paths the port has not reached yet are kept so that a JAX config carries
+over field by field, and the engine raises ``NotImplementedError`` on them
+(see ``engine/core.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass
+class DataConfig:
+    n_step: int = 100
+    n_traj: int = 100
+    h: float = 0.05
+    u_range: Tuple[float, float] = (-2.0, 2.0)
+    x0_range: Tuple[float, float] = (-2.0, 2.0)
+    clamp_x0: bool = False
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class LiftConfig:
+    kind: str = "mlp"  # the port has 'mlp' only (ROADMAP queue A)
+    nlift: int = 8
+    hidden: int = 100
+    rbf_type: str = "thinplate"
+    rbf_centers: str = "kmeans"
+    rff_bandwidth: float = 1.0
+    state_augmented: bool = False
+    zero_offset: bool = False
+    normalize: bool = False  # standardize lifted features (f32 robustness)
+    weights_path: Optional[str] = None
+
+
+@dataclasses.dataclass
+class MPCConfig:
+    controller: str = "mpc"
+    horizon: int = 10
+    q_weight: float = 100.0
+    r_weight: float = 1e-4
+    u_min: float = -2.0
+    u_max: float = 2.0
+    delta_u: bool = False
+    du_min: float = -0.5
+    du_max: float = 0.5
+    applied_min: Optional[float] = None
+    applied_max: Optional[float] = None
+    applied_bounds: str = "box"
+    track_lifted: bool = False
+    cy_index: Optional[int] = None
+    terminal_synthesis: bool = False
+    terminal_mode: str = "dare"
+    state_bounds: Optional[Tuple[float, float]] = None
+    markov: str = "dag"  # prediction-matrix build: dag | scan
+    qp_iters: int = 60
+    qp_rho: float = 0.1
+    qp_unroll: int = 10  # scan unroll in JAX; no meaning in eager PyTorch
+    qp_kkt_lowrank: bool = True
+    qp_kkt_block: int = 4  # KKT elimination block size (ops/linalg.spd_inverse)
+    qp_kkt_bf16: bool = False
+    qp_kkt_refine: int = 0
+    qp_kkt_reanchor: int = 16
+    # 'pallas' routes the batched box QP through the hand-written ADMM
+    # kernel (ops/box_admm.py; the slice's main path); 'xla' runs the plain
+    # batched solve_box_qp (the counterpart of the JAX default route)
+    qp_backend: str = "xla"
+
+
+@dataclasses.dataclass
+class UpdateConfig:
+    mode: str = "rls"  # the port has 'rls_sqrt' and 'off'
+    c_ab: float = 1e4
+    c_c: float = 1e2
+    warm_start_from_batch: bool = False
+    forgetting: float = 1.0
+    ridge: float = 0.0  # rls_sqrt: per-step diagonal trickle (f32 robustness)
+    reset_mult: float = 0.0  # residual-spike reset multiple; 0 disables
+    reset_factor: float = 1e-3
+    dither: float = 0.0
+    window: int = 256
+    window_filter: int = 24
+    window_filter_late: int = 0
+    window_filter_warmup: int = 300
+    window_refit_every: int = 1
+    window_carry: str = "none"
+    window_polish: int = 1
+    window_anchor: int = 0
+    window_store: str = "float32"
+    symmetrize: bool = True
+    c_pairing: str = "next"  # next (python) | same (matlab)
+
+
+@dataclasses.dataclass
+class RunConfig:
+    system: str = "duffing"
+    steps: int = 1000
+    switch_step: int = 100
+    reference: str = "constant"
+    reference_value: float = 1.0
+    reference_state: Optional[Tuple[float, ...]] = None
+    x0: Optional[Tuple[float, ...]] = None
+    integrator: str = "rk4"
+    dtype: str = "float32"
+    seed: int = 101
+    unroll: int = 1  # scan unroll in JAX; no meaning in eager PyTorch
+    matmul_precision: str = "default"
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    lift: LiftConfig = dataclasses.field(default_factory=LiftConfig)
+    mpc: MPCConfig = dataclasses.field(default_factory=MPCConfig)
+    update: UpdateConfig = dataclasses.field(default_factory=UpdateConfig)
+
+
+def duffing_nn_preset() -> RunConfig:
+    """The duffing.py flagship loop: NN lift (Nlift=8), Np=Nc=10,
+    u in [-2, 2], Q=100 on outputs, R=1e-4, r = 1, RLS init 1e4 I / 100 I,
+    inert plant switch, block-8 KKT elimination, square-root RLS with a
+    1e-2 ridge trickle. The port has no ``.mat`` loader yet (ROADMAP queue
+    A, L2): building this preset as it is raises; set
+    ``lift.weights_path=None`` for a random-init lift, as
+    :func:`flagship_config` does."""
+    return RunConfig(
+        system="duffing",
+        steps=10000,
+        switch_step=10**9,
+        mpc=MPCConfig(horizon=10, q_weight=100.0, r_weight=1e-4, u_min=-2,
+                      u_max=2, qp_kkt_block=8),
+        update=UpdateConfig(
+            mode="rls_sqrt", ridge=1e-2, c_ab=1e4, c_c=1e2, c_pairing="next"
+        ),
+        lift=LiftConfig(
+            kind="mlp", nlift=8, normalize=True,
+            # the reference's trained encoder, named relative to the
+            # reference tree; the port cannot load it yet (see above)
+            weights_path="Revise_2/duffing_weights.mat",
+        ),
+    )
+
+
+def flagship_config(steps: int = 200, horizon: int = 20,
+                    qp_backend: str = "pallas") -> RunConfig:
+    """``duffing_nn_preset`` with the overrides of ``bench.py:53-98``: f32,
+    the plant switch at ``steps // 2``, 50x50 data and a random-init,
+    un-normalized MLP lift 2-100-100-100-8 (``bench.py:98`` replaces the
+    preset's LiftConfig). ``qp_backend='pallas'`` sends the box QP through
+    the hand-written kernel: the slice's main path."""
+    cfg = duffing_nn_preset()
+    cfg.steps = steps
+    cfg.dtype = "float32"
+    cfg.mpc.horizon = horizon
+    cfg.mpc.qp_backend = qp_backend
+    cfg.switch_step = steps // 2
+    cfg.data = DataConfig(n_step=50, n_traj=50)
+    cfg.lift = LiftConfig(kind="mlp", nlift=8)
+    return cfg
+

@@ -1,0 +1,119 @@
+"""Condensed (dense) MPC QP construction (counterpart of
+``koopmanx/control/condensed.py``: ``prediction_matrices`` :53-93 with the
+'dag' :223-246 and 'scan' :37-50 builds, ``weight_bar`` :115-123 and the
+box case of ``condensed_qp`` :126-170).
+
+All functions take a leading scenario axis (models (B, N, N) etc.).
+
+  F1 = [C A; C A^2; ...; C A^N]                          (N*py, nz)
+  F2 = block-lower-triangular Toeplitz of C A^{j-1} B    (N*py, N*m)
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import Tensor
+
+from ..types import LinearModel
+
+
+class PredictionMatrices(NamedTuple):
+    f1: Tensor  # (..., N*py, nz)
+    f2: Tensor  # (..., N*py, N*m)
+
+
+class BoxQP(NamedTuple):
+    """``min 1/2 x'Px + q'x  s.t.  l <= x <= u`` (OSQP form with A = I)."""
+
+    P: Tensor
+    q: Tensor
+    l: Tensor
+    u: Tensor
+
+
+def markov_scan(a: Tensor, b: Tensor, cy_c: Tensor, horizon: int):
+    """Linear-depth recursion: rows_j = CyC A^{j+1}, markov_j = CyC A^j B."""
+    rows, markov = [], []
+    g = cy_c
+    for _ in range(horizon):
+        g_next = g @ a
+        rows.append(g_next)
+        markov.append(g @ b)
+        g = g_next
+    return torch.stack(rows, dim=-3), torch.stack(markov, dim=-3)
+
+
+def markov_dag(a: Tensor, b: Tensor, cy_c: Tensor, horizon: int):
+    """Per-row binary-composition DAG: the ladder A^(2^r), then each row
+    g_j = g_{j - 2^r} A^(2^r) with 2^r the largest power <= j."""
+    ladder = [a]
+    while len(ladder) < horizon.bit_length():
+        ladder.append(ladder[-1] @ ladder[-1])
+    g = [cy_c]
+    for j in range(1, horizon + 1):
+        r = j.bit_length() - 1
+        g.append(g[j - (1 << r)] @ ladder[r])
+    rows = torch.stack(g[1:], dim=-3)  # (..., N, py, nz)
+    markov = torch.stack(g[:horizon], dim=-3) @ b.unsqueeze(-3)  # (..., N, py, m)
+    return rows, markov
+
+
+def prediction_matrices(model: LinearModel, horizon: int,
+                        cy: Optional[Tensor] = None,
+                        method: str = "dag") -> PredictionMatrices:
+    """F1/F2 for a batch of models; ``cy`` selects tracked outputs of C z."""
+    c = model.C
+    cy_c = c if cy is None else cy @ c
+    py, nz = cy_c.shape[-2], model.A.shape[-1]
+    m = model.B.shape[-1]
+    if method == "dag":
+        rows, markov = markov_dag(model.A, model.B, cy_c, horizon)
+    elif method == "scan":
+        rows, markov = markov_scan(model.A, model.B, cy_c, horizon)
+    else:
+        raise NotImplementedError(
+            f"markov method {method!r} is not ported (the port has dag, scan)"
+        )
+    batch = rows.shape[:-3]
+    f1 = rows.reshape(batch + (horizon * py, nz))
+    # F2[i, j] = markov[i - j] for i >= j (block indices), else 0
+    idx = torch.arange(horizon, device=c.device)
+    diff = idx[:, None] - idx[None, :]
+    mask = (diff >= 0).to(markov.dtype)
+    blocks = markov[..., diff.clamp(0, horizon - 1), :, :]  # (..., N, N, py, m)
+    blocks = blocks * mask[:, :, None, None]
+    f2 = blocks.transpose(-3, -2).reshape(batch + (horizon * py, horizon * m))
+    return PredictionMatrices(f1=f1, f2=f2)
+
+
+def block_diag_repeat(block: Tensor, horizon: int) -> Tensor:
+    """``kron(I_N, block)`` for a batch of (..., k, k) blocks."""
+    k = block.shape[-1]
+    eye = torch.eye(horizon, dtype=block.dtype, device=block.device)
+    out = eye[:, None, :, None] * block[..., None, :, None, :]
+    return out.reshape(block.shape[:-2] + (horizon * k, horizon * k))
+
+
+def weight_bar(q_block: Tensor, horizon: int) -> Tensor:
+    """``Qbar = kron(I_N, Q)`` (the terminal-block override of terminal
+    synthesis is not ported: ``EngineConfig.terminal_synthesis`` raises)."""
+    return block_diag_repeat(q_block, horizon)
+
+
+def condensed_qp(pred: PredictionMatrices, z0: Tensor, yr: Tensor,
+                 qbar: Tensor, rbar: Tensor, u_min: Tensor, u_max: Tensor
+                 ) -> BoxQP:
+    """The box case of ``condensed_qp``: H = F2' Qbar F2 + Rbar,
+    symmetrized (Tank_System.m:152-153); P = 2H; q = 2 F2' Qbar (F1 z0 - yr).
+    ``z0`` (..., nz), ``yr`` (..., N*py), bounds (..., N*m)."""
+    f1, f2 = pred
+    f2t = f2.transpose(-1, -2)
+    h = (f2t @ qbar) @ f2 + rbar
+    h = 0.5 * (h + h.transpose(-1, -2))
+    err = (f1 @ z0.unsqueeze(-1)).squeeze(-1) - yr
+    q = 2.0 * (f2t @ (qbar @ err.unsqueeze(-1))).squeeze(-1)
+    nx = f2.shape[-1]
+    lo = u_min.expand(f2.shape[:-2] + (nx,))
+    hi = u_max.expand(f2.shape[:-2] + (nx,))
+    return BoxQP(P=2.0 * h, q=q, l=lo, u=hi)

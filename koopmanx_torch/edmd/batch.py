@@ -1,0 +1,60 @@
+"""Batch EDMD regression through Gram statistics (counterpart of
+``koopmanx/edmd/batch.py:54-105``)."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from ..lifts.base import Dictionary
+from ..systems.data import Snapshots
+from ..types import LinearModel
+
+
+class GramStats(NamedTuple):
+    """syv = Zy^T [Zx U], gvv = [Zx U]^T [Zx U], sxz = X^T Zx,
+    gzz = Zx^T Zx, count = snapshot count."""
+
+    syv: Tensor
+    gvv: Tensor
+    sxz: Tensor
+    gzz: Tensor
+    count: Tensor
+
+
+def gram_stats(zx: Tensor, zy: Tensor, u: Tensor, x: Tensor) -> GramStats:
+    v = torch.cat([zx, u], dim=-1)  # (S, N+m)
+    return GramStats(
+        syv=zy.T @ v,
+        gvv=v.T @ v,
+        sxz=x.T @ zx,
+        gzz=zx.T @ zx,
+        count=torch.tensor(zx.shape[0], dtype=zx.dtype, device=zx.device),
+    )
+
+
+def pinv(a: Tensor) -> Tensor:
+    """Pseudo-inverse with ``jnp.linalg.pinv``'s default cutoff: singular
+    values at most ``10 * max(M, N) * eps`` times the largest are dropped.
+    ``torch.linalg.pinv``'s own default is ``max(M, N) * eps``, ten times
+    smaller, so the cutoff is passed explicitly."""
+    rtol = 10.0 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+    return torch.linalg.pinv(a, rtol=rtol)
+
+
+def fit_from_grams(stats: GramStats, nlift: int) -> LinearModel:
+    """``method='pinv'`` of the JAX package (the only fit the port has):
+    ``K = syv pinv(gvv)`` -> [A B], ``C = sxz pinv(gzz)``."""
+    k_ext = stats.syv @ pinv(stats.gvv)
+    c = stats.sxz @ pinv(stats.gzz)
+    return LinearModel(A=k_ext[..., :, :nlift], B=k_ext[..., :, nlift:], C=c)
+
+
+def edmd_fit(dictionary: Dictionary, data: Snapshots) -> LinearModel:
+    """Batch EDMD: (A, B) from lifted one-step pairs, C from the output
+    regression (``duffing.py:167-177``), by pinv."""
+    zx = dictionary(data.x)
+    zy = dictionary(data.y)
+    stats = gram_stats(zx, zy, data.u, data.x)
+    return fit_from_grams(stats, dictionary.nlift)

@@ -1,0 +1,118 @@
+"""Square-root (Cholesky-factor) recursive least squares (counterpart of
+``koopmanx/edmd/rls.py:189-310``).
+
+The carry holds upper-triangular factors of the [z; u] and z Grams,
+updated by Givens rotations, and the model is extracted with two
+triangular solves. Every function takes a leading scenario axis.
+
+Precision: this is estimator math and must run in full float32 (the JAX
+package pins ``precision='highest'``); the port's entry points turn TF32
+off (``device.resolve_device``).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from ..types import LinearModel
+
+
+class SqrtRLSState(NamedTuple):
+    """K_A / barX accumulate ``z+ [z;u]'`` and ``x z'``; r_g / r_q are the
+    Cholesky factors of the [z;u] and z Grams (G = r_g' r_g); ``count``
+    cycles the ridge trickle and is per scenario, because the guard can
+    hold one scenario's carry back."""
+
+    K_A: Tensor  # (..., N, N+m)
+    r_g: Tensor  # (..., N+m, N+m) upper triangular
+    barX: Tensor  # (..., p, N)
+    r_q: Tensor  # (..., N, N) upper triangular
+    count: Tensor  # (...,) int32 step counter
+
+
+def chol_rank1_update(r: Tensor, v: Tensor) -> Tensor:
+    """Cholesky factor of ``R'R + v v'`` by d Givens rotations, batched:
+    r (B, d, d), v (B, d). The zero column (rho = 0) keeps its row."""
+    d = r.shape[-1]
+    r = r.clone()
+    for k in range(d):
+        rkk = r[..., k, k]
+        vk = v[..., k]
+        rho = torch.sqrt(rkk * rkk + vk * vk)
+        safe = rho > 0
+        den = torch.where(safe, rho, torch.ones_like(rho))
+        c = torch.where(safe, rkk / den, torch.ones_like(rho))
+        s = torch.where(safe, vk / den, torch.zeros_like(rho))
+        row = r[..., k, :].clone()
+        r[..., k, :] = c[..., None] * row + s[..., None] * v
+        v = c[..., None] * v - s[..., None] * row
+    return r
+
+
+def sqrt_rls_init(nlift: int, m: int, n: int, c_ab: float = 1e4,
+                  c_c: float = 1e2, dtype: torch.dtype = torch.float32,
+                  device=None) -> SqrtRLSState:
+    """inv(G) = c I  <=>  R = sqrt(1/c) I (one scenario, no batch axis)."""
+    kw = dict(dtype=dtype, device=device)
+    return SqrtRLSState(
+        K_A=torch.zeros((nlift, nlift + m), **kw),
+        r_g=(1.0 / c_ab) ** 0.5 * torch.eye(nlift + m, **kw),
+        barX=torch.zeros((n, nlift), **kw),
+        r_q=(1.0 / c_c) ** 0.5 * torch.eye(nlift, **kw),
+        count=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def _ridge_vector(count: Tensor, d: int, ridge: float, like: Tensor) -> Tensor:
+    """``ridge`` at index ``count % d`` of each scenario, zero elsewhere."""
+    e = torch.zeros(like.shape[:-2] + (d,), dtype=like.dtype, device=like.device)
+    idx = (count % d).long().unsqueeze(-1)
+    return e.scatter(-1, idx, ridge)
+
+
+def sqrt_rls_update_ab(state: SqrtRLSState, z: Tensor, u: Tensor,
+                       z_next: Tensor, lam: float = 1.0, ridge: float = 0.0
+                       ) -> SqrtRLSState:
+    """Rank-one update of the [A B] Gram; with ``ridge`` > 0 a second
+    rank-one update puts ``ridge^2`` on one cycling diagonal entry. Then
+    ``count`` is incremented, so the C-side update reads the new count."""
+    v = torch.cat([z, u], dim=-1)
+    d = v.shape[-1]
+    r_g = state.r_g if lam == 1.0 else lam ** 0.5 * state.r_g
+    r_g = chol_rank1_update(r_g, v)
+    if ridge > 0.0:
+        r_g = chol_rank1_update(r_g, _ridge_vector(state.count, d, ridge, r_g))
+    return state._replace(
+        K_A=state.K_A + z_next.unsqueeze(-1) * v.unsqueeze(-2),
+        r_g=r_g,
+        count=state.count + 1,
+    )
+
+
+def sqrt_rls_update_c(state: SqrtRLSState, z: Tensor, x_target: Tensor,
+                      lam: float = 1.0, ridge: float = 0.0) -> SqrtRLSState:
+    """Rank-one update of the output regression; the ridge index is the
+    count as left by :func:`sqrt_rls_update_ab` (post-increment)."""
+    d = z.shape[-1]
+    r_q = state.r_q if lam == 1.0 else lam ** 0.5 * state.r_q
+    r_q = chol_rank1_update(r_q, z)
+    if ridge > 0.0:
+        r_q = chol_rank1_update(r_q, _ridge_vector(state.count, d, ridge, r_q))
+    return state._replace(
+        barX=state.barX + x_target.unsqueeze(-1) * z.unsqueeze(-2), r_q=r_q
+    )
+
+
+def _solve_gram(r: Tensor, rhs: Tensor) -> Tensor:
+    """Solve (R'R) X = rhs with two triangular solves."""
+    y = torch.linalg.solve_triangular(r.transpose(-1, -2), rhs, upper=False)
+    return torch.linalg.solve_triangular(r, y, upper=True)
+
+
+def sqrt_rls_model(state: SqrtRLSState, nlift: int) -> LinearModel:
+    """K_ext = K_A G^{-1} and C = barX Q^{-1} from the factors."""
+    k_ext = _solve_gram(state.r_g, state.K_A.transpose(-1, -2)).transpose(-1, -2)
+    c = _solve_gram(state.r_q, state.barX.transpose(-1, -2)).transpose(-1, -2)
+    return LinearModel(A=k_ext[..., :, :nlift], B=k_ext[..., :, nlift:], C=c)

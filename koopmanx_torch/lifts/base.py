@@ -1,0 +1,57 @@
+"""Lifting dictionaries psi: R^n -> R^N (counterpart of
+``koopmanx/lifts/base.py``: the ``Dictionary`` wrapper, ``normalized`` and
+``fit_normalizer`` at :132-162).
+
+Where JAX held a pure apply function and a parameter pytree, the port
+holds an ``nn.Module`` encoder and the normalizer as buffers, so ``.to()``
+moves the whole lift.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor, nn
+
+
+class Dictionary(nn.Module):
+    """psi(x) = encoder(x), or (encoder(x) - mu) / sc when normalized.
+    Maps (..., n) -> (..., nlift)."""
+
+    def __init__(self, encoder: nn.Module, nlift: int, n: int,
+                 mean: Optional[Tensor] = None,
+                 scale: Optional[Tensor] = None):
+        super().__init__()
+        self.encoder = encoder
+        self.nlift = nlift
+        self.n = n
+        self.register_buffer("mu", mean)
+        self.register_buffer("sc", scale)
+
+    @property
+    def is_normalized(self) -> bool:
+        return self.mu is not None
+
+    def forward(self, x: Tensor) -> Tensor:
+        z = self.encoder(x)
+        if self.mu is not None:
+            z = (z - self.mu) / self.sc
+        return z
+
+
+def normalized(inner: Dictionary, mean: Tensor, scale: Tensor) -> Dictionary:
+    """psi'(x) = (psi(x) - mean) / scale: lifted-feature standardization,
+    which keeps the square-root RLS accurate in float32."""
+    if inner.is_normalized:
+        raise ValueError("dictionary is already normalized")
+    return Dictionary(inner.encoder, inner.nlift, inner.n, mean, scale)
+
+
+def fit_normalizer(inner: Dictionary, x_samples: Tensor, eps: float = 1e-6
+                   ) -> Tuple[Tensor, Tensor]:
+    """(mean, scale) of the lifted features over training states; the
+    population standard deviation, as ``jnp.std``."""
+    z = inner(x_samples)
+    mu = z.mean(dim=0)
+    sc = torch.clamp(z.std(dim=0, correction=0), min=eps)
+    return mu, sc
