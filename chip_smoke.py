@@ -3,18 +3,30 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device and the CUDA toolkit (nvcc); it exits non-zero without them,
-or without the rest of the repository beside it. Phases, each of which
-fails the run on error:
+or without the rest of the repository beside it. Three kernels, each
+replacing a TPU kernel of the JAX package:
+
+- ``box_admm`` (``csrc/box_admm.cu``; ``koopmanx/ops/qp_pallas_box.py``),
+  on the flagship loop's path;
+- ``fused_qp`` (``csrc/fused_qp.cu``, AoS; ``koopmanx/ops/qp_pallas.py``)
+  and ``fused_qp_soa`` (``csrc/fused_qp_soa.cu``, scenario-in-lanes;
+  ``koopmanx/ops/qp_pallas_soa.py``), the whole condensed QP of one
+  control step in one launch, behind their own entry points.
+
+Phases, each of which fails the run on error:
 
 1. build every kernel from ``koopmanx_torch/csrc`` (one nvcc per source,
-   all started together) and print the card's name and power limit;
+   all started together), print each one's register, stack and spill
+   report and the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (float32, B=8192 and a ragged B=1000, float64), and
-   time both;
-3. drive the slice's main path through the user entry points: the
-   flagship batched Duffing closed loop (8192 scenarios x 200 steps, f32,
-   horizon 20, plant switch at step 100, qp_backend='pallas'), with the
-   kernel launch counts zeroed just before and read just after;
+   shapes of its path (float32, B=8192 and a ragged B=1000, float64), and
+   time both; the fused kernels' inputs hold a few poisoned (non-finite)
+   scenarios, which must come out as in the plain version and leave their
+   neighbours alone;
+3. drive the slice-1 path through the user entry points: the flagship
+   batched Duffing closed loop (8192 scenarios x 200 steps, f32, horizon
+   20, plant switch at step 100, qp_backend='pallas'), with every kernel
+   launch count zeroed just before and read just after;
 4. run the same loop through the plain route (qp_backend='xla') and hold
    the two against each other: the first 16 steps tightly in float64, then
    the batch-mean control quality of the float32 200-step runs. Beside the
@@ -22,7 +34,17 @@ fails the run on error:
    itself with x0 nudged by one ulp (the scratch-RLS warm-up amplifies
    such a difference to O(0.1) within 16 steps, which is why the tight
    early gate runs in float64);
-5. time both loops once more, warm, with CUDA events.
+5. time both loops once more, warm, with CUDA events;
+6. drive the fused path: the flagship loop's end state from phase 3 (its
+   per-scenario models, lifted states and warm starts, the constant
+   reference window) through ``koopmanx_torch.ops.fused_qp_solve`` and
+   ``fused_qp_solve_soa``, one launch each with the counts zeroed before
+   and read after, each held against the plain version and the two
+   against each other; it prints, without gating, the first move's gap
+   to the engine's own control solve and the Newton-Schulz residual. Then
+   the convergence gate of tests/test_pallas.py at B=8192: both kernels
+   at 24 Newton-Schulz steps and 800 iterations within 5e-3 of the port's
+   ``solve_qp`` (float64).
 
 Prints the kernels JSON line, a slice timing JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
@@ -57,6 +79,20 @@ TOL = {"float32": 1e-5, "float64": 1e-12}
 # that test. Phase 4 prints the float32 floor (one ulp of x0) beside it.
 LOOP_EARLY_STEPS, LOOP_EARLY_TOL = 16, 1e-4
 QUALITY_RTOL = {"tracking MSE": 1e-2, "steady-state error": 5e-2}
+# the fused-QP kernels at the flagship's shapes (FusedQPConfig's defaults):
+# nz = 8 lifted states, m = 1 input, py = 2 tracked outputs, 16
+# Newton-Schulz steps
+NZ, M_IN, PY, SCHULZ = 8, 1, 2, 16
+# fused kernel vs plain, max |diff| of u where both are finite (|u| <= 2,
+# so absolute): the same arithmetic in another summation order, but the
+# QPs are ill-conditioned (cond(K) up to ~200) and 16 Newton-Schulz steps
+# leave K's inverse unconverged, so round-off reaches u amplified. Phase 2
+# prints beside each check the float32 floor: the plain version in
+# float32 against itself in float64 on the same inputs
+FUSED_TOL = {"float32": 5e-3, "float64": 1e-9}
+# tests/test_pallas.py:46-61: at convergence both kernels come within 5e-3
+# of the general solver (float64, N = 10, 24 Newton-Schulz steps)
+CONVERGED = {"horizon": 10, "iters": 800, "schulz_iters": 24, "tol": 5e-3}
 
 
 def fail(msg: str) -> None:
@@ -118,6 +154,294 @@ def box_admm_bound_ms(batch: int, nx: int, iters: int, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fused_inputs(batch: int, dtype, device, seed: int,
+                 horizon: int = HORIZON, poison: bool = True):
+    """Models built like tests/test_pallas.py:18-43 (A = 0.8 I + noise,
+    random B, CyC and z0, yr = [1, 0] over the horizon) and a warm start
+    off zero, made in float64 from a seed. With ``poison``, five scenarios
+    carry a non-finite entry (NaN or inf in A, z0, B or CyC). Returns the
+    inputs and the poisoned indices."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    f64 = dict(generator=g, dtype=torch.float64)
+    a = (0.1 * torch.randn((batch, NZ, NZ), **f64)
+         + 0.8 * torch.eye(NZ, dtype=torch.float64))
+    b = 0.3 * torch.randn((batch, NZ, M_IN), **f64)
+    cyc = 0.5 * torch.randn((batch, PY, NZ), **f64)
+    z0 = torch.randn((batch, NZ), **f64)
+    yr = torch.tensor([1.0, 0.0], dtype=torch.float64).repeat(batch, horizon)
+    warm = 0.1 * torch.randn((batch, horizon * M_IN), **f64)
+    bad = []
+    if poison:
+        bad = [1, batch // 7, batch // 3, batch // 2, batch - 2]
+        a[bad[0], 0, 0] = float("nan")
+        a[bad[1], 3, 4] = float("inf")
+        z0[bad[2], 0] = float("inf")
+        b[bad[3], 2, 0] = -float("inf")  # the Markov clamp keeps it finite
+        cyc[bad[4], 0, 0] = float("nan")
+    return [t.to(device=device, dtype=dtype).contiguous()
+            for t in (a, b, cyc, z0, yr, warm)], bad
+
+
+def compare_fused(out, ref):
+    """``(max |out - ref| where both are finite, same NaN/inf pattern)``."""
+    import torch
+
+    same = bool((out.isnan() == ref.isnan()).all()
+                and (out.isinf() == ref.isinf()).all())
+    both = torch.isfinite(out) & torch.isfinite(ref)
+    err = float((out - ref)[both].abs().max()) if bool(both.any()) else 0.0
+    return err, same
+
+
+def fused_qp_bound_ms(batch: int, nz: int, m: int, py: int, horizon: int,
+                      iters: int, schulz: int, dtype: str):
+    """Least time for the fused QP on an H100 SXM: bytes (A, B, CyC, z0,
+    yr, warm read once, u written once) over HBM rate vs operations over
+    the dtype's peak. Operations as the kernels do them per scenario
+    (an FMA counts 2):
+      Markov recursion, N x 2 (py nz m + py nz^2 + nz^2 + py nz);
+      weighted error 2 N py;
+      H from the blocks, skipping F2's structural zeros:
+        3 py m^2 sum_{k<N} (N - k)(2k + 1), plus q, 2 py m N(N + 1)/2;
+      trace, shift, norms and seed, 2 nx + 5 nx^2;
+      Newton-Schulz, schulz x (4 nx^3 + nx^2);
+      ADMM, iters x (2 nx^2 + 12 nx) (as box_admm's bound)."""
+    nx, item = horizon * m, (4 if dtype == "float32" else 8)
+    nbytes = batch * item * (nz * nz + nz * m + py * nz + nz + horizon * py
+                             + 2 * horizon * m)
+    toeplitz = sum((horizon - k) * (2 * k + 1) for k in range(horizon))
+    per = (horizon * 2 * (py * nz * m + py * nz * nz + nz * nz + py * nz)
+           + 2 * horizon * py
+           + 3 * py * m * m * toeplitz + py * m * horizon * (horizon + 1)
+           + 2 * nx + 5 * nx * nx
+           + schulz * (4 * nx ** 3 + nx * nx)
+           + iters * (2 * nx * nx + 12 * nx))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = batch * per / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_fused_checks(device):
+    """Both fused kernels vs the plain version on the card, with poisoned
+    scenarios; returns their kernels-line entries (float32, B=8192)."""
+    import torch
+    from koopmanx_torch.ops import FusedQPConfig, fused_qp_solve, fused_qp_solve_soa
+    from koopmanx_torch.ops.fused_qp import fused_qp_reference
+
+    cfg = FusedQPConfig(horizon=HORIZON, iters=ITERS, schulz_iters=SCHULZ)
+    kernels = {"fused_qp": (fused_qp_solve, "koopmanx_torch/csrc/fused_qp.cu",
+                            "koopmanx/ops/qp_pallas.py:214 (fused_qp_solve;"
+                            " pallas_call at :246)"),
+               "fused_qp_soa": (fused_qp_solve_soa,
+                                "koopmanx_torch/csrc/fused_qp_soa.cu",
+                                "koopmanx/ops/qp_pallas_soa.py:189"
+                                " (fused_qp_solve_soa; pallas_call at :227)")}
+    entries = {}
+    for dtype, batch in ((torch.float32, BATCH), (torch.float32, 1000),
+                         (torch.float64, 1000)):
+        dname = str(dtype).replace("torch.", "")
+        args, bad = fused_inputs(batch, dtype, device, seed=batch)
+        ref = fused_qp_reference(*args, cfg)
+        floor = compare_fused(
+            ref.double(), fused_qp_reference(*(t.double() for t in args), cfg))[0]
+        clean = torch.ones(batch, dtype=torch.bool, device=device)
+        clean[bad] = False
+        for name, (fn, source, replaces) in kernels.items():
+            out = fn(*args, cfg)
+            torch.cuda.synchronize()
+            err, same = compare_fused(out, ref)
+            case = {"dtype": dname, "batch": batch, "horizon": HORIZON,
+                    "iters": ITERS, "schulz_iters": SCHULZ,
+                    "max_abs_err": err, "tol": FUSED_TOL[dname],
+                    "nan_inf_pattern_same": same, "poisoned": len(bad),
+                    "poisoned_all_nan": int(out[bad].isnan().all(-1).sum()),
+                    "clean_finite": bool(torch.isfinite(out[clean]).all()),
+                    "floor_plain_f32_vs_f64": floor}
+            print(f"kernel {name} {dname} B={batch}: max|kernel-plain| = "
+                  f"{err:.3e} (tol {case['tol']:.0e}), NaN/inf pattern same "
+                  f"{same}, poisoned all-NaN {case['poisoned_all_nan']}/"
+                  f"{len(bad)}, plain f32-vs-f64 floor {floor:.3e}", flush=True)
+            if (tuple(out.shape) != (batch, HORIZON * M_IN) or not same
+                    or not case["clean_finite"] or not err <= case["tol"]):
+                fail(f"{name} disagrees with its plain version: {case}")
+            if name not in entries:  # float32 at the path's shape
+                ms = cuda_ms(lambda: fn(*args, cfg), reps=50)
+                plain_ms = cuda_ms(lambda: fused_qp_reference(*args, cfg),
+                                   reps=5)
+                bound, bound_by = fused_qp_bound_ms(
+                    batch, NZ, M_IN, PY, HORIZON, ITERS, SCHULZ, dname)
+                entries[name] = {
+                    "name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": err, "tol": case["tol"], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound,
+                    "bound_by": bound_by,
+                    "library_ms": None,  # no single PyTorch call computes it
+                    "shape": {"batch": batch, "nz": NZ, "m": M_IN, "py": PY,
+                              "horizon": HORIZON, "iters": ITERS,
+                              "schulz_iters": SCHULZ, "dtype": dname},
+                    "checks": []}
+            entries[name]["checks"].append(case)
+    return entries
+
+
+def kernel_counters():
+    """Every kernel wrapper of the port, by kernel name."""
+    from koopmanx_torch.ops import fused_qp_solve, fused_qp_solve_soa
+    from koopmanx_torch.ops.box_admm import box_admm
+
+    return {"box_admm": box_admm, "fused_qp": fused_qp_solve,
+            "fused_qp_soa": fused_qp_solve_soa}
+
+
+def zero_counts() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def fused_config(pipe, py: int, m: int):
+    """FusedQPConfig from the flagship RunConfig and its engine config:
+    horizon, ADMM iterations, rho, sigma, alpha and f_clamp, the stage
+    weights and the input box per channel (Newton-Schulz steps: the
+    config's default, 16)."""
+    from koopmanx_torch.ops import FusedQPConfig
+
+    mc, ec = pipe.config.mpc, pipe.engine_cfg
+    return FusedQPConfig(
+        horizon=mc.horizon, iters=mc.qp_iters, rho=mc.qp_rho,
+        sigma=ec.qp_sigma, alpha=ec.qp_alpha, f_clamp=ec.f_clamp,
+        qdiag=(mc.q_weight,) * py, rdiag=(mc.r_weight,) * m,
+        u_lo=(mc.u_min,) * m, u_hi=(mc.u_max,) * m)
+
+
+def phase_fused_path(pipe, carry, device):
+    """Phase 6: the fused entry points on the flagship loop's end state.
+    Returns the launch counts of that run."""
+    import torch
+    from koopmanx_torch import ops
+    from koopmanx_torch.engine.core import make_control_solver
+    from koopmanx_torch.ops.fused_qp import (
+        fused_qp_reference,
+        fused_qp_terms,
+        newton_schulz_kkt_inverse,
+    )
+    from koopmanx_torch.run import ref_fn_for, replicate
+
+    params, model = pipe.params, carry.model
+    py, m = params.q_block.shape[0], model.B.shape[-1]
+    z = pipe.dictionary(carry.x)
+    cyc = model.C if params.cy is None else params.cy @ model.C
+    ref_fn = ref_fn_for(pipe.config, py, device)
+    yr = ref_fn(STEPS).reshape(-1).expand(BATCH, -1)
+    args = [t.contiguous() for t in (model.A, model.B, cyc, z, yr,
+                                     carry.warm_x)]
+    cfg = fused_config(pipe, py, m)
+
+    zero_counts()
+    u_aos, s_aos = timed(lambda: ops.fused_qp_solve(*args, cfg))
+    u_soa, s_soa = timed(lambda: ops.fused_qp_solve_soa(*args, cfg))
+    counts = read_counts()
+
+    ref = fused_qp_reference(*args, cfg)
+    err_aos, same_aos = compare_fused(u_aos, ref)
+    err_soa, same_soa = compare_fused(u_soa, ref)
+    err_pair, same_pair = compare_fused(u_aos, u_soa)
+    control_solve = make_control_solver(pipe.engine_cfg, ref_fn, m)
+    dec, s_engine = timed(lambda: control_solve(
+        replicate(params, BATCH), model, z, carry.warm_x, carry.warm_y, STEPS))
+    gap = (u_aos[:, :m] - dec.u_applied).abs().amax(-1)
+    p_mat, _ = fused_qp_terms(*args[:5], cfg)
+    kkt, x_inv, _ = newton_schulz_kkt_inverse(p_mat, cfg)
+    eye = torch.eye(kkt.shape[-1], dtype=kkt.dtype, device=device)
+    ns_res = torch.linalg.matrix_norm(eye - kkt @ x_inv)
+    converged = ns_res <= 1e-3
+    tol = FUSED_TOL["float32"]
+    report = {
+        "batch": BATCH, "horizon": cfg.horizon, "m": m, "py": py,
+        "nz": model.A.shape[-1], "iters": cfg.iters,
+        "schulz_iters": cfg.schulz_iters, "launches": counts,
+        "fused_qp_vs_plain": err_aos, "fused_qp_soa_vs_plain": err_soa,
+        "fused_qp_vs_soa": err_pair, "tol": tol,
+        "finite_share": float(torch.isfinite(u_aos).all(-1).float().mean()),
+        "fused_qp_s": s_aos, "fused_qp_soa_s": s_soa,
+        "first_move_gap_to_engine": {"max": float(gap.max()),
+                                     "median": float(gap.median()),
+                                     "max_where_ns_residual_le_1e-3":
+                                         float(gap[converged].max())
+                                         if bool(converged.any()) else None,
+                                     "engine_control_solve_s": s_engine},
+        "newton_schulz_residual_fro": {
+            "median": float(ns_res.median()), "max": float(ns_res.max()),
+            "share_le_1e-3": float(converged.float().mean())}}
+    print("phase 6 fused path " + json.dumps(report), flush=True)
+    if counts["fused_qp"] != 1 or counts["fused_qp_soa"] != 1:
+        fail(f"the fused entry points launched {counts}, not once each")
+    for label, err, same, limit in (("fused_qp", err_aos, same_aos, tol),
+                                    ("fused_qp_soa", err_soa, same_soa, tol),
+                                    ("fused_qp vs soa", err_pair, same_pair,
+                                     2 * tol)):
+        if not same or not err <= limit:
+            fail(f"phase 6 {label}: max diff {err} (tol {limit}), NaN/inf "
+                 f"pattern same {same}")
+    if tuple(u_aos.shape) != (BATCH, cfg.horizon * m):
+        fail(f"phase 6 fused_qp shape {tuple(u_aos.shape)}")
+    if not bool((u_aos.abs() <= 2.0).all()):
+        fail("phase 6 fused_qp: non-finite u or |u| > 2")
+    return counts
+
+
+def phase_convergence(device):
+    """tests/test_pallas.py:46-61 at B=8192: both kernels at convergence
+    against the port's general solve_qp on the same condensed QPs."""
+    import torch
+    from koopmanx_torch import ops
+    from koopmanx_torch.control import condensed as tc
+    from koopmanx_torch.control.qp import ADMMConfig, solve_qp
+    from koopmanx_torch.types import LinearModel, QPData
+
+    n_h, f64 = CONVERGED["horizon"], torch.float64
+    args, _ = fused_inputs(BATCH, f64, device, seed=7, horizon=n_h,
+                           poison=False)
+    a, b, cyc, z0, yr, warm = args
+    warm = torch.zeros_like(warm)  # the fixture's cold start
+    cfg = ops.FusedQPConfig(horizon=n_h, iters=CONVERGED["iters"],
+                            schulz_iters=CONVERGED["schulz_iters"])
+    eye = lambda k: torch.eye(k, dtype=f64, device=device).expand(BATCH, k, k)
+    pred = tc.prediction_matrices(LinearModel(a, b, cyc), n_h)
+    lo = torch.full((BATCH, n_h * M_IN), -2.0, dtype=f64, device=device)
+    box = tc.condensed_qp(pred, z0, yr, tc.weight_bar(100.0 * eye(PY), n_h),
+                          1e-4 * eye(n_h * M_IN), lo, -lo)
+    qp = QPData(box.P, box.q, eye(n_h * M_IN), box.l, box.u)
+    admm = ADMMConfig(iters=CONVERGED["iters"], rho=0.1)
+    ref = solve_qp(qp, admm).x
+    f32 = [t.float() for t in (a, b, cyc, z0, yr, warm)]
+    gaps, gaps_f32 = {}, {}
+    for name, fn in (("fused_qp", ops.fused_qp_solve),
+                     ("fused_qp_soa", ops.fused_qp_solve_soa)):
+        gaps[name] = float((fn(a, b, cyc, z0, yr, warm, cfg) - ref).abs().max())
+        gaps_f32[name] = float((fn(*f32, cfg).double() - ref).abs().max())
+    # the general solver itself in float32 (block-1 Gauss-Jordan KKT inverse)
+    ref32 = solve_qp(QPData(*(t.float() for t in qp)), admm).x.double()
+    off32 = (ref32 - ref).abs().amax(-1)
+    print("phase 6 convergence " + json.dumps(
+        {"batch": BATCH, **CONVERGED, "max_gap_to_solve_qp_f64": gaps,
+         "not gated": {"float32_kernels_vs_f64_solve_qp": gaps_f32,
+                       "solve_qp_f32_vs_f64": float(off32.max()),
+                       "solve_qp_f32_qps_off_by_over_5e-3":
+                           int((off32 > CONVERGED["tol"]).sum())}}),
+        flush=True)
+    for name, gap in gaps.items():
+        if not gap <= CONVERGED["tol"]:
+            fail(f"{name} at convergence is {gap} from solve_qp "
+                 f"(tol {CONVERGED['tol']})")
 
 
 def phase_kernel_checks(device):
@@ -198,7 +522,12 @@ def run_loop(backend: str, device, steps: int = STEPS, dtype: str = "float32",
                           device=device)
     if nudge:
         sc = sc._replace(x0=torch.nextafter(sc.x0, torch.full_like(sc.x0, 9.0)))
-    return lambda: run_scenarios(pipe, sc)
+
+    def run():
+        return run_scenarios(pipe, sc)
+
+    run.pipe = pipe
+    return run
 
 
 def timed(fn):
@@ -253,22 +582,25 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if any(k in line.lower() for k in ("compiling entry", "registers",
+                                                "spill", "error")):
                 print(f"nvcc {name}: {line.strip()}", flush=True)
     print(f"phase 1 build: {sorted(reports)} in {build_s:.1f} s", flush=True)
     card = card_line()
 
     # ---- 2. kernels vs plain versions ----
     entry = phase_kernel_checks(device)
+    fused_entries = phase_fused_checks(device)
 
     # ---- 3. the main path through the kernel ----
     run_kernel = run_loop("pallas", device)
-    box_admm.launches = 0
+    zero_counts()
     (carry_k, log_k), cold_k = timed(run_kernel)
-    launches = box_admm.launches
+    counts = read_counts()
+    launches = counts["box_admm"]
     entry["launches"] = launches
-    print(f"phase 3 main path (pallas): {cold_k:.2f} s cold, box_admm "
-          f"launches {launches}", flush=True)
+    print(f"phase 3 main path (pallas): {cold_k:.2f} s cold, launches "
+          f"{counts}", flush=True)
     if launches != STEPS:
         fail(f"box_admm launched {launches} times in {STEPS} steps")
     check_loop(carry_k, log_k, "pallas")
@@ -336,7 +668,15 @@ def main() -> int:
         "card": card,
     }
     print(json.dumps(slice_line), flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+
+    # ---- 6. the fused path on the flagship loop's own models ----
+    with torch.inference_mode():
+        counts = phase_fused_path(run_kernel.pipe, carry_k, device)
+        phase_convergence(device)
+    for name, fused in fused_entries.items():
+        fused["launches"] = counts[name]
+    print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

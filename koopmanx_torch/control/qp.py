@@ -1,14 +1,19 @@
-"""Batched box-QP ADMM (counterpart of ``koopmanx/control/qp.py``:
-``ADMMConfig`` and ``_effective_rho`` :36-68, ``box_kkt`` :136-142,
-``solve_box_qp`` :145-202 and ``solve_box_qp_batch_pallas`` :205-249).
+"""Batched OSQP-style ADMM (counterpart of ``koopmanx/control/qp.py``:
+``ADMMConfig`` and ``_effective_rho`` :36-68, ``solve_qp`` and
+``solve_qp_batch`` :71-133, ``box_kkt`` :136-142, ``solve_box_qp``
+:145-202 and ``solve_box_qp_batch_pallas`` :205-249).
 
-  minimize 1/2 x'Px + q'x   s.t.  lo <= x <= hi
+  general:  minimize 1/2 x'Px + q'x   s.t.  l <= Ax <= u
+  box:      minimize 1/2 x'Px + q'x   s.t.  lo <= x <= hi
 
-Every function takes a leading scenario axis: p (B, nx, nx), vectors
-(B, nx). The KKT matrix ``P + (sigma + rho) I`` is inverted once per call
-(``ops/linalg.spd_inverse`` at ``kkt_block``, on every route), then a fixed
-number of ADMM iterations runs, either as plain tensor ops
-(:func:`solve_box_qp`) or in the CUDA kernel (:func:`solve_box_qp_batch_kernel`).
+The box functions take a leading scenario axis: p (B, nx, nx), vectors
+(B, nx); :func:`solve_qp` takes any leading axes, none included. The KKT
+matrix (``P + (sigma + rho) I``, or ``P + sigma I + rho A'A`` in general)
+is inverted once per call (``ops/linalg.spd_inverse`` at ``kkt_block``, on
+every route), then a fixed number of ADMM iterations runs, as plain tensor
+ops or, for the box path, in the CUDA kernel
+(:func:`solve_box_qp_batch_kernel`). The bf16 KKT inverse (JAX's
+``kkt_bf16``) is not ported (ROADMAP L3); the engine refuses it.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from torch import Tensor
 
 from ..ops.box_admm import box_admm, box_admm_reference
 from ..ops.linalg import spd_inverse
-from ..types import QPSolution
+from ..types import QPData, QPSolution
 
 
 class ADMMConfig(NamedTuple):
@@ -28,10 +33,16 @@ class ADMMConfig(NamedTuple):
     sigma: float = 1e-6
     alpha: float = 1.6
     kkt_block: int = 1  # KKT elimination block size (spd_inverse)
+    # normalize rho by trace(P)/nx (JAX's field; last here so that the
+    # box path's positional callers keep their meaning)
+    scale_rho: bool = True
 
 
 def _effective_rho(p: Tensor, cfg: ADMMConfig) -> Tensor:
-    """Per-scenario rho (B,): ``rho * max(trace(P)/nx, 1e-6)``."""
+    """rho per QP, shape ``p.shape[:-2]``: ``rho * max(trace(P)/nx, 1e-6)``,
+    or ``rho`` itself without ``scale_rho``."""
+    if not cfg.scale_rho:
+        return torch.full(p.shape[:-2], cfg.rho, dtype=p.dtype, device=p.device)
     nx = p.shape[-1]
     scale = torch.diagonal(p, dim1=-2, dim2=-1).sum(-1) / nx
     return cfg.rho * torch.clamp(scale, min=1e-6)
@@ -43,6 +54,54 @@ def box_kkt(p: Tensor, cfg: ADMMConfig) -> Tensor:
     rho = _effective_rho(p, cfg)
     eye = torch.eye(nx, dtype=p.dtype, device=p.device)
     return p + (cfg.sigma + rho)[..., None, None] * eye
+
+
+def _mv(m: Tensor, v: Tensor) -> Tensor:
+    return (m @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def solve_qp(qp: QPData, cfg: ADMMConfig = ADMMConfig(),
+             x0: Optional[Tensor] = None,
+             y0: Optional[Tensor] = None) -> QPSolution:
+    """Solve QPs with inequality rows by a fixed number of ADMM iterations
+    (``koopmanx/control/qp.py::solve_qp``). Every leaf may carry the same
+    leading batch axes (none: one QP); ``x0``/``y0`` warm-start the primal
+    and dual iterates."""
+    p, q, a, lo, hi = qp
+    nx = p.shape[-1]
+    x = torch.zeros_like(q) if x0 is None else x0
+    y = torch.zeros_like(lo) if y0 is None else y0
+    at = a.transpose(-1, -2)
+    z = torch.clamp(_mv(a, x), lo, hi)
+    rho = _effective_rho(p, cfg)[..., None]  # (..., 1)
+    sigma, alpha = cfg.sigma, cfg.alpha
+    eye = torch.eye(nx, dtype=p.dtype, device=p.device)
+    kkt = p + sigma * eye + (rho[..., None] * at) @ a
+    kkt_inv = spd_inverse(kkt, block=cfg.kkt_block)
+    for _ in range(cfg.iters):
+        rhs = sigma * x - q + _mv(at, rho * z - y)
+        xt = _mv(kkt_inv, rhs)
+        axt = _mv(a, xt)
+        x = alpha * xt + (1.0 - alpha) * x
+        z_mid = alpha * axt + (1.0 - alpha) * z
+        z_new = torch.clamp(z_mid + y / rho, lo, hi)
+        y = y + rho * (z_mid - z_new)
+        z = z_new
+    ax = _mv(a, x)
+    primal = (ax - torch.clamp(ax, lo, hi)).abs().amax(-1)
+    dual = (_mv(p, x) + q + _mv(at, y)).abs().amax(-1)
+    return QPSolution(x=x, z=z, y=y, primal_res=primal, dual_res=dual,
+                      iterations=cfg.iters)
+
+
+def solve_qp_batch(qp: QPData, cfg: ADMMConfig = ADMMConfig(),
+                   x0: Optional[Tensor] = None,
+                   y0: Optional[Tensor] = None) -> QPSolution:
+    """:func:`solve_qp` over a leading batch axis that every leaf carries
+    (the counterpart of JAX's ``vmap``-ed ``solve_qp_batch``)."""
+    if qp.P.dim() < 3:
+        raise ValueError(f"P must be (B, nx, nx), got {tuple(qp.P.shape)}")
+    return solve_qp(qp, cfg, x0, y0)
 
 
 def _solve(admm, p, q, lo, hi, cfg: ADMMConfig, x0, y0):

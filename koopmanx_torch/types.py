@@ -22,6 +22,24 @@ class LinearModel(NamedTuple):
     C: Tensor
 
 
+class QPData(NamedTuple):
+    """A dense QP in OSQP standard form (counterpart of
+    ``koopmanx/types.py:71-85``).
+
+    minimize   1/2 x^T P x + q^T x
+    subject to l <= A x <= u
+
+    Box bounds are identity rows in ``A``. Shapes (with leading batch
+    dims): P (nx, nx), q (nx,), A (nc, nx), l (nc,), u (nc,).
+    """
+
+    P: Tensor
+    q: Tensor
+    A: Tensor
+    l: Tensor
+    u: Tensor
+
+
 class QPSolution(NamedTuple):
     """Primal/dual solution and residuals of the batched ADMM solver."""
 

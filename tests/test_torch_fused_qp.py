@@ -1,0 +1,225 @@
+"""koopmanx_torch's fused condensed-QP path and its general ADMM solve_qp
+against the JAX package: the plain version against both Pallas kernels in
+interpret mode, the fused solve at convergence against solve_qp,
+solve_qp against JAX's, and the wrappers' CPU dispatch and input checks.
+float64 unless stated; inputs made with numpy from a seed."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from koopmanx.control import qp as jqp  # noqa: E402
+from koopmanx.ops.qp_pallas import FusedQPConfig as JFusedQPConfig  # noqa: E402
+from koopmanx.ops.qp_pallas import fused_qp_solve as j_fused_aos  # noqa: E402
+from koopmanx.ops.qp_pallas_soa import fused_qp_solve_soa as j_fused_soa  # noqa: E402
+from koopmanx.types import QPData as JQPData  # noqa: E402
+
+from koopmanx_torch.control import condensed as tc  # noqa: E402
+from koopmanx_torch.control import qp as tqp  # noqa: E402
+from koopmanx_torch.ops import FusedQPConfig, fused_qp_solve, fused_qp_solve_soa  # noqa: E402
+from koopmanx_torch.ops.fused_qp import (  # noqa: E402
+    check_aos_limits,
+    check_inputs,
+    fused_qp_reference,
+)
+from koopmanx_torch.types import LinearModel, QPData  # noqa: E402
+
+NZ, N = 8, 10  # the tests/test_pallas.py fixture: B=8, nz=8, m=1, py=2, N=10
+
+
+def _fused_inputs(seed, batch=8, m=1, py=2, horizon=N):
+    """Models built like tests/test_pallas.py:18-43, a warm start off zero."""
+    rng = np.random.default_rng(seed)
+    a = 0.1 * rng.normal(size=(batch, NZ, NZ)) + 0.8 * np.eye(NZ)
+    b = 0.3 * rng.normal(size=(batch, NZ, m))
+    cyc = 0.5 * rng.normal(size=(batch, py, NZ))
+    z0 = rng.normal(size=(batch, NZ))
+    yr = np.tile([1.0] + [0.0] * (py - 1), (batch, horizon))
+    warm = 0.1 * rng.normal(size=(batch, horizon * m))
+    return a, b, cyc, z0, yr, warm
+
+
+def _cfg_kw(m=1, schulz=16, iters=60, horizon=N):
+    return dict(horizon=horizon, iters=iters, rho=0.1, schulz_iters=schulz,
+                tile=8, rdiag=(1e-4,) * m, u_lo=(-2.0,) * m, u_hi=(2.0,) * m)
+
+
+@pytest.mark.parametrize("layout", ["aos", "soa"])
+@pytest.mark.parametrize("m,schulz", [(1, 16), (1, 24), (2, 16)])
+def test_fused_reference_matches_pallas_interpret(layout, m, schulz):
+    """The plain version against each TPU kernel, same f64 inputs, to
+    1e-9. Same arithmetic; the sums run in another order, and for the AoS
+    kernel with m = 2 (py = 2) F2' comes from its dual Markov recursion
+    where the port reads F2 transposed (the SoA kernel always recurses):
+    rounding differences of ~1e-16 relative, which the unconverged
+    Newton-Schulz inverse (schulz_iters 16) carries through with their
+    relative size and 60 contracting ADMM iterations do not amplify
+    (measured ~1e-12)."""
+    inputs = _fused_inputs(10 * m + schulz, m=m)
+    kw = _cfg_kw(m=m, schulz=schulz)
+    jfn = j_fused_aos if layout == "aos" else j_fused_soa
+    ref = jfn(*(jnp.asarray(v) for v in inputs), JFusedQPConfig(**kw),
+              interpret=True)
+    out = fused_qp_reference(*(torch.tensor(v) for v in inputs),
+                             FusedQPConfig(**kw))
+    assert out.shape == (8, N * m)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-9)
+
+
+def _condensed_as_general_qp(inputs, dtype=torch.float64):
+    """The fixture's condensed QP, as tests/test_pallas.py:28-42 builds it,
+    in OSQP form with identity rows."""
+    a, b, cyc, z0, yr, _ = (torch.tensor(v, dtype=dtype) for v in inputs)
+    batch = a.shape[0]
+    pred = tc.prediction_matrices(LinearModel(a, b, cyc), N)
+    qbar = tc.weight_bar(100.0 * torch.eye(2, dtype=dtype).expand(batch, 2, 2), N)
+    rbar = 1e-4 * torch.eye(N, dtype=dtype).expand(batch, N, N)
+    lo = torch.full((batch, N), -2.0, dtype=dtype)
+    box = tc.condensed_qp(pred, z0, yr, qbar, rbar, lo, -lo)
+    eye = torch.eye(N, dtype=dtype).expand(batch, N, N)
+    return QPData(box.P, box.q, eye, box.l, box.u)
+
+
+@pytest.mark.parametrize("entry", [fused_qp_solve, fused_qp_solve_soa])
+def test_fused_solve_converges_to_solve_qp(entry):
+    """At 800 iterations and 24 Newton-Schulz steps the fused solve (the
+    plain version, CPU tensors) reaches the general solver's solution
+    within 5e-3, as tests/test_pallas.py:46-61 holds the TPU kernels: the
+    two ADMMs take different valid iterate sequences."""
+    inputs = _fused_inputs(0)
+    kw = _cfg_kw(schulz=24, iters=800)
+    u = entry(*(torch.tensor(v) for v in inputs), FusedQPConfig(**kw))
+    sol = tqp.solve_qp_batch(_condensed_as_general_qp(inputs),
+                             tqp.ADMMConfig(iters=800, rho=0.1))
+    np.testing.assert_allclose(u.numpy(), sol.x.numpy(), rtol=0, atol=5e-3)
+
+
+def _general_qps(rng, batch, nx=6, nc=10):
+    """SPD P, and A = [I; random rows] so that l <= Ax <= u has inequality
+    rows beyond the box."""
+    mm = rng.normal(size=(batch, nx, nx))
+    p = np.einsum("bij,bkj->bik", mm, mm) + 0.5 * np.eye(nx)
+    q = rng.normal(size=(batch, nx))
+    extra = rng.normal(size=(batch, nc - nx, nx))
+    a = np.concatenate([np.broadcast_to(np.eye(nx), (batch, nx, nx)), extra], 1)
+    lo = -1.0 - rng.uniform(size=(batch, nc))
+    hi = 1.0 + rng.uniform(size=(batch, nc))
+    x0 = 0.1 * rng.normal(size=(batch, nx))
+    y0 = 0.1 * rng.normal(size=(batch, nc))
+    return (p, q, a, lo, hi), x0, y0
+
+
+@pytest.mark.parametrize("block,scale_rho", [(1, True), (4, False)])
+def test_solve_qp_batch_matches_jax_vmap(block, scale_rho):
+    """float64, warm x0/y0, 4 inequality rows beyond the identity; 1e-10
+    for the KKT inverse's and the matvecs' summation order."""
+    data, x0, y0 = _general_qps(np.random.default_rng(block), 5)
+    jcfg = jqp.ADMMConfig(iters=80, rho=0.1, kkt_block=block,
+                          scale_rho=scale_rho)
+    ref = jqp.solve_qp_batch(JQPData(*(jnp.asarray(v) for v in data)), jcfg,
+                             jnp.asarray(x0), jnp.asarray(y0))
+    tcfg = tqp.ADMMConfig(iters=80, rho=0.1, kkt_block=block,
+                          scale_rho=scale_rho)
+    out = tqp.solve_qp_batch(QPData(*(torch.tensor(v) for v in data)), tcfg,
+                             torch.tensor(x0), torch.tensor(y0))
+    for name in ("x", "z", "y", "primal_res", "dual_res"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)), rtol=0,
+                                   atol=1e-10)
+    assert out.iterations == 80
+
+
+def test_solve_qp_unbatched_matches_jax():
+    """One QP with no batch axis, cold start: the JAX function itself."""
+    data, _, _ = _general_qps(np.random.default_rng(7), 1)
+    data = tuple(v[0] for v in data)
+    cfg = dict(iters=50, rho=0.1)
+    ref = jqp.solve_qp(JQPData(*(jnp.asarray(v) for v in data)),
+                       jqp.ADMMConfig(**cfg))
+    out = tqp.solve_qp(QPData(*(torch.tensor(v) for v in data)),
+                       tqp.ADMMConfig(**cfg))
+    assert out.x.shape == (6,) and out.primal_res.shape == ()
+    for name in ("x", "z", "y", "primal_res", "dual_res"):
+        np.testing.assert_allclose(getattr(out, name).numpy(),
+                                   np.asarray(getattr(ref, name)), rtol=0,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("entry", [fused_qp_solve, fused_qp_solve_soa])
+def test_fused_entry_on_cpu_is_the_plain_version(entry):
+    """A CPU tensor takes the plain version bit for bit and launches
+    nothing; a ragged B = 7 (no tile multiple) is accepted, float32."""
+    inputs = [torch.tensor(v, dtype=torch.float32)
+              for v in _fused_inputs(3, batch=7)]
+    cfg = FusedQPConfig(**_cfg_kw())
+    before = entry.launches
+    out = entry(*inputs, cfg)
+    assert entry.launches == before
+    assert out.shape == (7, N) and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(),
+                                  fused_qp_reference(*inputs, cfg).numpy())
+
+
+def test_fused_reference_isolates_poisoned_scenarios():
+    """A non-finite model or state poisons its own scenario only, with the
+    same NaN pattern as the AoS TPU kernel (interpret mode); its
+    neighbours equal a run without the poisoned scenarios."""
+    inputs = [np.array(v) for v in _fused_inputs(5)]
+    clean = fused_qp_reference(*(torch.tensor(v) for v in inputs),
+                               FusedQPConfig(**_cfg_kw()))
+    inputs[0][1, 0, 0] = np.nan  # A
+    inputs[3][3, 0] = np.inf  # z0
+    inputs[1][4, 2, 0] = -np.inf  # B: the Markov clamp keeps it finite
+    kw = _cfg_kw()
+    ref = np.asarray(j_fused_aos(*(jnp.asarray(v) for v in inputs),
+                                 JFusedQPConfig(**kw), interpret=True))
+    out = fused_qp_reference(*(torch.tensor(v) for v in inputs),
+                             FusedQPConfig(**kw)).numpy()
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    assert np.isnan(out[[1, 3]]).all() and np.isfinite(out[4]).all()
+    keep = [0, 2, 5, 6, 7]
+    np.testing.assert_array_equal(out[keep], clean.numpy()[keep])
+    np.testing.assert_allclose(out[4], ref[4], rtol=0, atol=1e-9)
+
+
+def test_fused_config_matches_jax_defaults():
+    assert FusedQPConfig._fields == JFusedQPConfig._fields
+    assert tuple(FusedQPConfig()) == tuple(JFusedQPConfig())
+
+
+def test_fused_wrappers_refuse_malformed_inputs():
+    """The checks both wrappers run before they hand pointers to a
+    kernel, and the AoS kernel's size limits."""
+    good = [torch.tensor(v, dtype=torch.float32) for v in _fused_inputs(6)]
+    cfg = FusedQPConfig(**_cfg_kw())
+    assert check_inputs(*good, cfg) == (8, NZ, 1, 2)
+    a, b, cyc, z0, yr, warm = good
+    bad_inputs = [
+        ([a.half(), b, cyc, z0, yr, warm], TypeError),
+        ([a, b.double(), cyc, z0, yr, warm], TypeError),
+        ([a[:, :, :7], b, cyc, z0, yr, warm], ValueError),
+        ([a, b[0], cyc, z0, yr, warm], ValueError),
+        ([a, b, cyc, z0[:4], yr, warm], ValueError),
+        ([a, b, cyc, z0, yr[:, :-1], warm], ValueError),
+        ([a, b, cyc, z0, yr, warm[:, :5]], ValueError),
+        ([a, b, cyc, z0, yr, torch.zeros(N, 8).T], ValueError),
+        ([a[:0], b[:0], cyc[:0], z0[:0], yr[:0], warm[:0]], ValueError),
+    ]
+    for args, err in bad_inputs:
+        with pytest.raises(err):
+            check_inputs(*args, cfg)
+    for bad_cfg in (cfg._replace(horizon=0), cfg._replace(iters=-1),
+                    cfg._replace(schulz_iters=-1), cfg._replace(qdiag=()),
+                    cfg._replace(u_lo=(-1.0,) * 17)):
+        with pytest.raises(ValueError):
+            check_inputs(*good, bad_cfg)
+    check_aos_limits(NZ, 1, 2, FusedQPConfig(), torch.float64)
+    with pytest.raises(ValueError, match="N\\*m"):
+        check_aos_limits(NZ, 2, 2, FusedQPConfig(horizon=65), torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_aos_limits(NZ, 1, 2, FusedQPConfig(horizon=100), torch.float64)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_qp_solve(*(t.to("meta") for t in good), cfg)
