@@ -20,7 +20,11 @@ Phases, each of which fails the run on error:
    report and the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of its path (float32, B=8192 and a ragged B=1000, float64), and
-   time both; the fused kernels' inputs hold a few poisoned (non-finite)
+   time both; ``box_admm`` also at every compiled instance (nx = 5 and 32,
+   the smallest and widest with the KKT-inverse row in registers; 33 and
+   128, the first and widest with it in shared memory; B=1000, float32 and
+   float64), each case with its registers, block size, resident warps per
+   SM and waves; the fused kernels' inputs hold a few poisoned (non-finite)
    scenarios, which must come out as in the plain version and leave their
    neighbours alone;
 3. drive the slice-1 path through the user entry points: the flagship
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,9 +73,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # kernel vs plain, max |diff| over xt, z, y, relative to max(1, |ref|):
 # both run the same iteration; only the order of the nx-term dot products
-# (sequential FMAs in the kernel, cuBLAS's reduction in the plain version)
-# differs, a few ulps per iteration through 60 contracting iterations
+# (four interleaved FMA chains in the kernel for nx <= 32, one above;
+# cuBLAS's reduction in the plain version) and y * (1 / rho) against
+# y / rho (one ulp) differ, a few ulps per iteration through 60
+# contracting iterations
 TOL = {"float32": 1e-5, "float64": 1e-12}
+# box_admm's widths beyond the main path's nx = 20, one for each end of
+# each compiled family: registers (nx rounded up to 8, up to 32), then
+# shared memory (up to 128)
+BOX_WIDTHS = (5, 32, 33, 128)
 # plain vs kernel closed loop, identical but for that reassociation. During
 # the scratch-RLS warm-up the loop amplifies a round-off seed by many orders
 # of magnitude (tests/test_kkt_refine.py:53-59 documents it for the JAX
@@ -122,6 +133,60 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``reps`` back-to-back calls, by
+    CUDA events, with the calls queued behind a spin kernel
+    (``torch.cuda._sleep``) so that the host's time to launch them does not
+    show between them. Fails if the spin ended before the last call was
+    queued, after a few tries with longer spins."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 10 ** 8  # ~50 ms at 2 GHz
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spun.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not spun.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    fail("could not queue the timed calls ahead of the device")
+
+
+def ptxas_registers(log: str):
+    """``{mangled kernel name: registers per thread}`` from the
+    ``nvcc -Xptxas -v`` report of one build."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            regs[entry] = int(m.group(1))
+            entry = None
+    return regs
+
+
+def box_admm_ptxas_registers(regs, dtype: str, nx: int):
+    """ptxas's registers for the register instance that ``nx`` launches
+    (``box_admm_regs<T, NXP>``, NXP = nx rounded up to 8), or None."""
+    nxp = -(-nx // 8) * 8
+    key = f"box_admm_regsI{'f' if dtype == 'float32' else 'd'}Li{nxp}E"
+    found = [n for name, n in regs.items() if key in name]
+    return found[0] if len(found) == 1 else None
 
 
 def box_inputs(batch: int, nx: int, dtype, device, seed: int):
@@ -269,7 +334,8 @@ def phase_fused_checks(device):
                     or not case["clean_finite"] or not err <= case["tol"]):
                 fail(f"{name} disagrees with its plain version: {case}")
             if name not in entries:  # float32 at the path's shape
-                ms = cuda_ms(lambda: fn(*args, cfg), reps=50)
+                ms = device_ms(lambda: fn(*args, cfg), reps=20)
+                back_to_back = cuda_ms(lambda: fn(*args, cfg), reps=50)
                 plain_ms = cuda_ms(lambda: fused_qp_reference(*args, cfg),
                                    reps=5)
                 bound, bound_by = fused_qp_bound_ms(
@@ -278,8 +344,8 @@ def phase_fused_checks(device):
                     "name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": None,
                     "max_abs_err": err, "tol": case["tol"], "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound,
-                    "bound_by": bound_by,
+                    "ms_back_to_back": back_to_back, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by,
                     "library_ms": None,  # no single PyTorch call computes it
                     "shape": {"batch": batch, "nz": NZ, "m": M_IN, "py": PY,
                               "horizon": HORIZON, "iters": ITERS,
@@ -444,18 +510,26 @@ def phase_convergence(device):
                  f"(tol {CONVERGED['tol']})")
 
 
-def phase_kernel_checks(device):
-    """Kernel vs plain version on the card; returns the kernels-line entry
-    for the main path's shape and every case checked."""
+def phase_kernel_checks(device, ptxas_regs=None):
+    """Kernel vs plain version on the card, at the main path's width and at
+    every compiled instance's (``BOX_WIDTHS``); returns the kernels-line
+    entry for the main path's shape and every case checked. ``ptxas_regs``
+    is :func:`ptxas_registers` of phase 1's build of the kernel."""
     import torch
-    from koopmanx_torch.ops.box_admm import box_admm, box_admm_reference
+    from koopmanx_torch.ops.box_admm import (
+        box_admm,
+        box_admm_reference,
+        launch_shape,
+    )
 
+    f32, f64 = torch.float32, torch.float64
+    runs = [(f32, BATCH, HORIZON), (f32, 1000, HORIZON), (f64, 1000, HORIZON)]
+    runs += [(dtype, 1000, nx) for nx in BOX_WIDTHS for dtype in (f32, f64)]
     cases = []
     main = None
-    for dtype, batch in ((torch.float32, BATCH), (torch.float32, 1000),
-                         (torch.float64, 1000)):
+    for dtype, batch, nx in runs:
         name = str(dtype).replace("torch.", "")
-        args = box_inputs(batch, HORIZON, dtype, device, seed=batch)
+        args = box_inputs(batch, nx, dtype, device, seed=batch)
         kw = dict(iters=ITERS, sigma=SIGMA, alpha=ALPHA)
         out = box_admm(*args, **kw)
         ref = box_admm_reference(*args, **kw)
@@ -463,17 +537,24 @@ def phase_kernel_checks(device):
         err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
         scale = max(1.0, max(float(r.abs().max()) for r in ref))
         finite = all(bool(torch.isfinite(o).all()) for o in out)
-        case = {"dtype": name, "batch": batch, "nx": HORIZON, "iters": ITERS,
-                "max_abs_err": err, "tol": TOL[name] * scale}
+        shape = launch_shape(dtype, batch, nx)
+        case = {"dtype": name, "batch": batch, "nx": nx, "iters": ITERS,
+                "max_abs_err": err, "tol": TOL[name] * scale,
+                "launch": shape._asdict()}
         cases.append(case)
-        print(f"kernel box_admm {name} B={batch}: max|kernel-plain| = {err:.3e}"
-              f" (tol {case['tol']:.1e})", flush=True)
+        print(f"kernel box_admm {name} B={batch} nx={nx}: max|kernel-plain| ="
+              f" {err:.3e} (tol {case['tol']:.1e}); {shape.registers} "
+              f"registers, {shape.warps_per_block} warps/block, "
+              f"{shape.resident_warps_per_sm} resident warps/SM, "
+              f"{shape.waves} waves", flush=True)
         if not finite or not err <= case["tol"]:
             fail(f"box_admm disagrees with its plain version: {case}")
         if main is None:  # float32 at the main path's shape
-            ms = cuda_ms(lambda: box_admm(*args, **kw), reps=50)
+            ms = device_ms(lambda: box_admm(*args, **kw), reps=50)
+            back_to_back = cuda_ms(lambda: box_admm(*args, **kw), reps=50)
             plain_ms = cuda_ms(lambda: box_admm_reference(*args, **kw), reps=5)
             bound, bound_by = box_admm_bound_ms(batch, HORIZON, ITERS, name)
+            regs = box_admm_ptxas_registers(ptxas_regs or {}, name, nx)
             main = {
                 "name": "box_admm",
                 "route": "cuda",
@@ -484,10 +565,18 @@ def phase_kernel_checks(device):
                 "max_abs_err": err,
                 "tol": case["tol"],
                 "ms": ms,
+                "ms_back_to_back": back_to_back,
                 "plain_ms": plain_ms,
                 "bound_ms": bound,
                 "bound_by": bound_by,
                 "library_ms": None,  # no single PyTorch call computes it
+                # ptxas's count from phase 1, else the runtime's (same
+                # number) when the library was built before this run
+                "registers": shape.registers if regs is None else regs,
+                "registers_from": "runtime" if regs is None else "ptxas",
+                "resident_warps_per_sm": shape.resident_warps_per_sm,
+                "warps_per_block": shape.warps_per_block,
+                "waves": shape.waves,
                 "shape": {"batch": batch, "nx": HORIZON, "iters": ITERS,
                           "dtype": name},
             }
@@ -589,7 +678,8 @@ def main() -> int:
     card = card_line()
 
     # ---- 2. kernels vs plain versions ----
-    entry = phase_kernel_checks(device)
+    entry = phase_kernel_checks(
+        device, ptxas_registers(reports.get("box_admm", "")))
     fused_entries = phase_fused_checks(device)
 
     # ---- 3. the main path through the kernel ----

@@ -1,15 +1,17 @@
 """Batched box-QP ADMM: the hand-written CUDA kernel and its plain version.
 
 Replaces the TPU kernel ``koopmanx/ops/qp_pallas_box.py::box_admm_pallas``
-with ``koopmanx_torch/csrc/box_admm.cu`` (one warp per scenario, the KKT
-inverse held in shared memory for all iterations; see the note at the top
-of the source for its bound and design).
+with ``koopmanx_torch/csrc/box_admm.cu`` (one warp per scenario, lane i
+holding row i of the KKT inverse in registers for nx <= 32, the inverse
+in shared memory above; see the note at the top of the source for its
+bound and design).
 
 - :func:`box_admm_reference` is the plain PyTorch version: the same
   iteration as batched tensor ops.
 - :func:`box_admm` dispatches on the tensors' device: a CPU tensor goes to
   the plain version, a CUDA tensor to the kernel, or the call raises.
   ``box_admm.launches`` counts kernel launches.
+- :func:`launch_shape` says how the kernel fills the card at a shape.
 
 Signature of both: ``(minv, q, lo, hi, x0, y0, rho, iters, sigma, alpha)
 -> (xt, z, y)`` with minv (B, nx, nx), vectors (B, nx), rho (B,).
@@ -68,6 +70,9 @@ def _load():
             for fn in (lib.box_admm_f32, lib.box_admm_f64):
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+            lib.box_admm_launch_shape.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.box_admm_launch_shape.restype = ctypes.c_int
             lib.box_admm_error_string.argtypes = [ctypes.c_int]
             lib.box_admm_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -132,3 +137,25 @@ def box_admm(minv: Tensor, q: Tensor, lo: Tensor, hi: Tensor, x0: Tensor,
 
 
 box_admm.launches = 0
+
+
+class LaunchShape(NamedTuple):
+    registers: int  # per thread, as ptxas allotted them
+    warps_per_block: int
+    resident_warps_per_sm: int
+    waves: int  # rounds of resident blocks that cover the batch
+
+
+def launch_shape(dtype: torch.dtype, batch: int, nx: int) -> LaunchShape:
+    """How :func:`box_admm` launches the kernel at ``batch`` x ``nx`` on the
+    current CUDA device (the kernel's own occupancy query; no launch)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"box_admm takes float32 or float64, got {dtype}")
+    lib = _load()
+    out = (ctypes.c_int * 4)()
+    err = lib.box_admm_launch_shape(int(dtype == torch.float64), batch, nx,
+                                    ctypes.addressof(out))
+    if err != 0:
+        msg = lib.box_admm_error_string(err).decode()
+        raise RuntimeError(f"box_admm launch shape failed: {msg} ({err})")
+    return LaunchShape(*out)

@@ -14,7 +14,11 @@ from koopmanx.types import LinearModel as JModel  # noqa: E402
 
 from koopmanx_torch.control import condensed as tc  # noqa: E402
 from koopmanx_torch.control import qp as tqp  # noqa: E402
-from koopmanx_torch.ops.box_admm import box_admm, box_admm_reference  # noqa: E402
+from koopmanx_torch.ops.box_admm import (  # noqa: E402
+    box_admm,
+    box_admm_reference,
+    launch_shape,
+)
 from koopmanx_torch.types import LinearModel as TModel  # noqa: E402
 
 B, NZ, M, PY, N = 5, 8, 1, 2, 10
@@ -97,14 +101,19 @@ def test_solve_box_qp_matches_jax_vmap(block):
                                    atol=1e-10)
 
 
-@pytest.mark.parametrize("batch", [7, 16])
-def test_box_admm_reference_matches_pallas_interpret(batch):
+@pytest.mark.parametrize("nx,batch", [
+    pytest.param(nx, batch, id=str(batch) if nx == 20 else f"nx{nx}-{batch}")
+    for nx in (5, 20, 33) for batch in (7, 16)])
+def test_box_admm_reference_matches_pallas_interpret(nx, batch):
     """float32, the Pallas kernel in interpret mode on identical inputs;
     atol 2e-6 as tests/test_pallas.py:87-101 (f32 matvec reassociation).
-    batch=7 is the ragged case the TPU wrapper pads. The kernel runs its
-    fori_loop form (equal to the unrolled one at 1e-7, test_pallas.py:104),
-    which interprets much faster."""
-    p, q, lo, hi, x0 = _box_batch(np.random.default_rng(3), batch,
+    batch=7 is the ragged case the TPU wrapper pads. nx = 20 is the main
+    path's width; 5 and 33 are widths at which chip_smoke.py holds the
+    CUDA kernel (its register and shared-memory instances) against this
+    plain version. The kernel runs its fori_loop form (equal to the
+    unrolled one at 1e-7, test_pallas.py:104), which interprets much
+    faster."""
+    p, q, lo, hi, x0 = _box_batch(np.random.default_rng(3), batch, nx,
                                   dtype=np.float32)
     cfg = jqp.ADMMConfig(iters=60, rho=0.1)
     ref = jqp.solve_box_qp_batch_pallas(
@@ -171,3 +180,10 @@ def test_box_admm_refuses_malformed_inputs():
     for m, vecs, r, iters, err in cases:
         with pytest.raises(err):
             _check(m, vecs, r, iters)
+
+
+def test_launch_shape_refuses_other_dtypes():
+    """The occupancy query takes the kernel's two types, and checks that
+    before it loads the library."""
+    with pytest.raises(TypeError):
+        launch_shape(torch.float16, 8192, 20)

@@ -6,8 +6,9 @@ the kernel route by default) for a few warm-up steps, then profiles
 ``--steps`` more with ``torch.profiler`` (CPU and CUDA activities). Prints
 the top device kernels by time, then one JSON line: wall ms per step,
 device-busy ms per step (the union of the kernels' intervals), the
-device's idle share, kernel launches per step and the box-ADMM kernel's
-share. ``--out`` also writes the whole kernel table to a file.
+device's idle share, kernel launches per step, and the box-ADMM kernel's
+share of busy time and device time per launch. ``--out`` also writes the
+whole kernel table to a file.
 
     python3 tools/profile_torch_step.py [--steps 10] [--batch 8192] [--out FILE]
 """
@@ -86,6 +87,7 @@ def main() -> int:
             f.write("\n".join(lines) + "\n")
     print("\n".join(lines[:26]))
     admm_us = sum(us for name, (us, _) in rows if "box_admm" in name)
+    admm_n = sum(n for name, (_, n) in rows if "box_admm" in name)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -99,6 +101,7 @@ def main() -> int:
         "device_idle_share": 1.0 - busy_us / (wall_plain * 1e6),
         "device_ops_per_step": len(spans) / args.steps,
         "box_admm_share_of_busy": admm_us / busy_us if busy_us else None,
+        "box_admm_us_per_launch": admm_us / admm_n if admm_n else None,
         "card": card,
     }))
     return 0
