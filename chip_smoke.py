@@ -9,24 +9,31 @@ replacing a TPU kernel of the JAX package:
 - ``box_admm`` (``csrc/box_admm.cu``; ``koopmanx/ops/qp_pallas_box.py``),
   on the flagship loop's path;
 - ``fused_qp`` (``csrc/fused_qp.cu``, AoS; ``koopmanx/ops/qp_pallas.py``)
-  and ``fused_qp_soa`` (``csrc/fused_qp_soa.cu``, scenario-in-lanes;
-  ``koopmanx/ops/qp_pallas_soa.py``), the whole condensed QP of one
-  control step in one launch, behind their own entry points.
+  and ``fused_qp_soa`` (``csrc/fused_qp_soa.cu``, scenario-in-lanes, 32
+  scenarios a block in float32 and 16 in float64 with the working set in
+  shared memory and registers, or one thread per scenario with a global
+  scratch for larger shapes; ``koopmanx/ops/qp_pallas_soa.py``), the whole
+  condensed QP of one control step in one launch, behind their own entry
+  points.
 
 Phases, each of which fails the run on error:
 
 1. build every kernel from ``koopmanx_torch/csrc`` (one nvcc per source,
    all started together), print each one's register, stack and spill
-   report and the card's name and power limit;
+   report (and fail if ptxas gives a ``fused_qp_soa`` instance any stack
+   or spills) and the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of its path (float32, B=8192 and a ragged B=1000, float64), and
    time both; ``box_admm`` also at every compiled instance (nx = 5 and 32,
    the smallest and widest with the KKT-inverse row in registers; 33 and
    128, the first and widest with it in shared memory; B=1000, float32 and
    float64), each case with its registers, block size, resident warps per
-   SM and waves; the fused kernels' inputs hold a few poisoned (non-finite)
-   scenarios, which must come out as in the plain version and leave their
-   neighbours alone;
+   SM and waves; ``fused_qp_soa`` also at N = 10 (the convergence gate's
+   shape) and at m = 2 (N*m = 40, its global instance), float32 and
+   float64 at B=1000, each case with its instance, registers, shared bytes
+   per block, warps per block, resident warps per SM and waves; the fused
+   kernels' inputs hold a few poisoned (non-finite) scenarios, which must
+   come out as in the plain version and leave their neighbours alone;
 3. drive the slice-1 path through the user entry points: the flagship
    batched Duffing closed loop (8192 scenarios x 200 steps, f32, horizon
    20, plant switch at step 100, qp_backend='pallas'), with every kernel
@@ -222,7 +229,7 @@ def box_admm_bound_ms(batch: int, nx: int, iters: int, dtype: str):
 
 
 def fused_inputs(batch: int, dtype, device, seed: int,
-                 horizon: int = HORIZON, poison: bool = True):
+                 horizon: int = HORIZON, poison: bool = True, m: int = M_IN):
     """Models built like tests/test_pallas.py:18-43 (A = 0.8 I + noise,
     random B, CyC and z0, yr = [1, 0] over the horizon) and a warm start
     off zero, made in float64 from a seed. With ``poison``, five scenarios
@@ -234,11 +241,11 @@ def fused_inputs(batch: int, dtype, device, seed: int,
     f64 = dict(generator=g, dtype=torch.float64)
     a = (0.1 * torch.randn((batch, NZ, NZ), **f64)
          + 0.8 * torch.eye(NZ, dtype=torch.float64))
-    b = 0.3 * torch.randn((batch, NZ, M_IN), **f64)
+    b = 0.3 * torch.randn((batch, NZ, m), **f64)
     cyc = 0.5 * torch.randn((batch, PY, NZ), **f64)
     z0 = torch.randn((batch, NZ), **f64)
     yr = torch.tensor([1.0, 0.0], dtype=torch.float64).repeat(batch, horizon)
-    warm = 0.1 * torch.randn((batch, horizon * M_IN), **f64)
+    warm = 0.1 * torch.randn((batch, horizon * m), **f64)
     bad = []
     if poison:
         bad = [1, batch // 7, batch // 3, batch // 2, batch - 2]
@@ -290,14 +297,54 @@ def fused_qp_bound_ms(batch: int, nz: int, m: int, py: int, horizon: int,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_fused_checks(device):
+def fused_qp_soa_ptxas_registers(regs, dtype: str, shape):
+    """ptxas's registers for the SoA instance that ``shape``
+    (:func:`koopmanx_torch.ops.fused_qp_soa.launch_shape`) names, or None."""
+    t = "f" if dtype == "float32" else "d"
+    if shape.instance == "shared":  # fused_qp_soa_smem<T, NXP, R, S>
+        key = f"fused_qp_soa_smemI{t}Li{shape.nxp}E"
+    else:
+        key = f"fused_qp_soa_globalI{t}E"
+    found = [n for name, n in regs.items() if key in name]
+    return found[0] if len(found) == 1 else None
+
+
+def ptxas_stack_and_spills(log: str):
+    """``[(kernel, stack bytes, spill store bytes, spill load bytes)]`` from
+    the ``nvcc -Xptxas -v`` report of one build."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and entry:
+            out.append((entry, *map(int, m.groups())))
+            entry = None
+    return out
+
+
+# B3's cases beyond the three both fused kernels run, one for each edge of
+# its design: (dtype, batch, horizon, m). N = 10 is the convergence gate's
+# shape (shared instance, NXP = 12); m = 2 gives N*m = 40, past the shared
+# instance (global instance); B = 1000 is no multiple of 32 (nor of the
+# global instance's 64)
+SOA_EDGES = (("float32", 1000, 10, 1), ("float64", 1000, 10, 1),
+             ("float32", 1000, HORIZON, 2), ("float64", 1000, HORIZON, 2))
+
+
+def phase_fused_checks(device, ptxas_regs=None):
     """Both fused kernels vs the plain version on the card, with poisoned
-    scenarios; returns their kernels-line entries (float32, B=8192)."""
+    scenarios (float32 at B=8192 and 1000, float64 at 1000), then B3 at
+    ``SOA_EDGES``; every B3 case with its instance and launch shape.
+    Returns their kernels-line entries (float32, B=8192). ``ptxas_regs``
+    is :func:`ptxas_registers` of phase 1's build of B3."""
     import torch
     from koopmanx_torch.ops import FusedQPConfig, fused_qp_solve, fused_qp_solve_soa
     from koopmanx_torch.ops.fused_qp import fused_qp_reference
+    from koopmanx_torch.ops.fused_qp_soa import launch_shape as soa_launch_shape
 
-    cfg = FusedQPConfig(horizon=HORIZON, iters=ITERS, schulz_iters=SCHULZ)
     kernels = {"fused_qp": (fused_qp_solve, "koopmanx_torch/csrc/fused_qp.cu",
                             "koopmanx/ops/qp_pallas.py:214 (fused_qp_solve;"
                             " pallas_call at :246)"),
@@ -305,32 +352,55 @@ def phase_fused_checks(device):
                                 "koopmanx_torch/csrc/fused_qp_soa.cu",
                                 "koopmanx/ops/qp_pallas_soa.py:189"
                                 " (fused_qp_solve_soa; pallas_call at :227)")}
+    runs = [(d, b, HORIZON, M_IN, tuple(kernels))
+            for d, b in (("float32", BATCH), ("float32", 1000),
+                         ("float64", 1000))]
+    runs += [(*edge, ("fused_qp_soa",)) for edge in SOA_EDGES]
     entries = {}
-    for dtype, batch in ((torch.float32, BATCH), (torch.float32, 1000),
-                         (torch.float64, 1000)):
-        dname = str(dtype).replace("torch.", "")
-        args, bad = fused_inputs(batch, dtype, device, seed=batch)
+    for dname, batch, horizon, m, names in runs:
+        dtype = getattr(torch, dname)
+        cfg = FusedQPConfig(horizon=horizon, iters=ITERS, schulz_iters=SCHULZ)
+        args, bad = fused_inputs(batch, dtype, device, seed=batch, m=m,
+                                 horizon=horizon)
         ref = fused_qp_reference(*args, cfg)
         floor = compare_fused(
             ref.double(), fused_qp_reference(*(t.double() for t in args), cfg))[0]
         clean = torch.ones(batch, dtype=torch.bool, device=device)
         clean[bad] = False
-        for name, (fn, source, replaces) in kernels.items():
+        for name in names:
+            fn, source, replaces = kernels[name]
             out = fn(*args, cfg)
             torch.cuda.synchronize()
             err, same = compare_fused(out, ref)
-            case = {"dtype": dname, "batch": batch, "horizon": HORIZON,
+            case = {"dtype": dname, "batch": batch, "horizon": horizon, "m": m,
                     "iters": ITERS, "schulz_iters": SCHULZ,
                     "max_abs_err": err, "tol": FUSED_TOL[dname],
                     "nan_inf_pattern_same": same, "poisoned": len(bad),
                     "poisoned_all_nan": int(out[bad].isnan().all(-1).sum()),
                     "clean_finite": bool(torch.isfinite(out[clean]).all()),
                     "floor_plain_f32_vs_f64": floor}
-            print(f"kernel {name} {dname} B={batch}: max|kernel-plain| = "
-                  f"{err:.3e} (tol {case['tol']:.0e}), NaN/inf pattern same "
-                  f"{same}, poisoned all-NaN {case['poisoned_all_nan']}/"
-                  f"{len(bad)}, plain f32-vs-f64 floor {floor:.3e}", flush=True)
-            if (tuple(out.shape) != (batch, HORIZON * M_IN) or not same
+            shape_note = ""
+            if name == "fused_qp_soa":
+                shape = soa_launch_shape(dtype, batch, NZ, m, PY, cfg)
+                regs = fused_qp_soa_ptxas_registers(ptxas_regs or {}, dname,
+                                                    shape)
+                case["launch"] = {**shape._asdict(),
+                                  "registers_from": "runtime"}
+                if regs is not None:
+                    case["launch"].update(registers=regs,
+                                          registers_from="ptxas")
+                shape_note = (f"; instance {shape.instance} (NXP {shape.nxp}), "
+                              f"{case['launch']['registers']} registers, "
+                              f"{shape.shared_bytes} shared bytes/block, "
+                              f"{shape.warps_per_block} warps/block, "
+                              f"{shape.resident_warps_per_sm} resident "
+                              f"warps/SM, {shape.waves} waves")
+            print(f"kernel {name} {dname} B={batch} N={horizon} m={m}: "
+                  f"max|kernel-plain| = {err:.3e} (tol {case['tol']:.0e}), "
+                  f"NaN/inf pattern same {same}, poisoned all-NaN "
+                  f"{case['poisoned_all_nan']}/{len(bad)}, plain f32-vs-f64 "
+                  f"floor {floor:.3e}{shape_note}", flush=True)
+            if (tuple(out.shape) != tuple(args[5].shape) or not same
                     or not case["clean_finite"] or not err <= case["tol"]):
                 fail(f"{name} disagrees with its plain version: {case}")
             if name not in entries:  # float32 at the path's shape
@@ -339,7 +409,7 @@ def phase_fused_checks(device):
                 plain_ms = cuda_ms(lambda: fused_qp_reference(*args, cfg),
                                    reps=5)
                 bound, bound_by = fused_qp_bound_ms(
-                    batch, NZ, M_IN, PY, HORIZON, ITERS, SCHULZ, dname)
+                    batch, NZ, m, PY, horizon, ITERS, SCHULZ, dname)
                 entries[name] = {
                     "name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": None,
@@ -347,8 +417,9 @@ def phase_fused_checks(device):
                     "ms_back_to_back": back_to_back, "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": bound_by,
                     "library_ms": None,  # no single PyTorch call computes it
-                    "shape": {"batch": batch, "nz": NZ, "m": M_IN, "py": PY,
-                              "horizon": HORIZON, "iters": ITERS,
+                    **case.get("launch", {}),
+                    "shape": {"batch": batch, "nz": NZ, "m": m, "py": PY,
+                              "horizon": horizon, "iters": ITERS,
                               "schulz_iters": SCHULZ, "dtype": dname},
                     "checks": []}
             entries[name]["checks"].append(case)
@@ -675,12 +746,18 @@ def main() -> int:
                                                 "spill", "error")):
                 print(f"nvcc {name}: {line.strip()}", flush=True)
     print(f"phase 1 build: {sorted(reports)} in {build_s:.1f} s", flush=True)
+    for kernel, stack, spill_st, spill_ld in ptxas_stack_and_spills(
+            reports.get("fused_qp_soa", "")):
+        if stack or spill_st or spill_ld:
+            fail(f"ptxas gives {kernel} {stack} bytes of stack, "
+                 f"{spill_st}/{spill_ld} bytes of spill stores/loads")
     card = card_line()
 
     # ---- 2. kernels vs plain versions ----
     entry = phase_kernel_checks(
         device, ptxas_registers(reports.get("box_admm", "")))
-    fused_entries = phase_fused_checks(device)
+    fused_entries = phase_fused_checks(
+        device, ptxas_registers(reports.get("fused_qp_soa", "")))
 
     # ---- 3. the main path through the kernel ----
     run_kernel = run_loop("pallas", device)

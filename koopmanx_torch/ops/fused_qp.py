@@ -54,8 +54,9 @@ class FusedQPConfig(NamedTuple):
 
     ``tile`` (scenarios per TPU kernel instance) is kept so that a JAX
     config carries over; the CUDA kernels do not read it: the AoS kernel
-    gives each scenario one warp, the SoA kernel one thread, and each sizes
-    its blocks itself."""
+    gives each scenario one warp, the SoA kernel 32 scenarios to a block
+    in float32 and 16 in float64 (one thread each where the shape is too
+    large for its shared instance), and each sizes its blocks itself."""
 
     horizon: int = 20
     iters: int = 60
@@ -152,6 +153,67 @@ def aos_shared_bytes(nz: int, m: int, py: int, horizon: int,
     nx, nrow = horizon * m, horizon * py
     return itemsize * (nz * nz + nz * m + 3 * py * nz + 2 * nz
                        + horizon * py * m + 2 * nrow + 2 * nx + 4 * nx * nx)
+
+
+# the SoA kernel's shared instance: scenarios per block, rows per thread,
+# and the widest N*m (rounded up to 4)
+_SOA_LANES = {torch.float32: 32, torch.float64: 16}
+_SOA_ROWS = 2
+_SOA_MAX_NXP = {torch.float32: 24, torch.float64: 20}
+_DEFAULT_SHARED = 48 * 1024  # the SoA global instance's per-channel vectors
+
+
+def soa_shared_bytes(nz: int, m: int, py: int, horizon: int,
+                     dtype: torch.dtype) -> int:
+    """Shared memory one block of the SoA kernel's shared instance holds
+    (``SmemLayout`` of ``csrc/fused_qp_soa.cu``) for its S scenarios (32
+    in float32, 16 in float64): X and T (NXP x NXP each, NXP = N*m rounded
+    up to 4; the prologue's arrays share T's space where they fit), q, two
+    rhs buffers, two norm partials per row group, each element S lanes
+    wide; then Qbar."""
+    nxp = -(-horizon * m // 4) * 4
+    groups = nxp // _SOA_ROWS
+    prologue = (nz * nz + nz * m + 3 * py * nz + 2 * nz + horizon * py * m
+                + horizon * py)
+    lanes = nxp * nxp + max(nxp * nxp, prologue) + 3 * nxp + 2 * groups
+    item = torch.finfo(dtype).bits // 8
+    return item * (lanes * _SOA_LANES[dtype] + horizon * py)
+
+
+def soa_instance(nz: int, m: int, py: int, cfg: FusedQPConfig,
+                 dtype: torch.dtype) -> str:
+    """The SoA kernel's instance for a shape: ``"shared"`` (32 or 16 scenarios
+    a block, the working set in shared memory and registers) where N*m fits
+    its widest NXP and its block within 227 KB of shared memory, else
+    ``"global"`` (one thread per scenario, a global scratch)."""
+    nx = cfg.horizon * m
+    if (-(-nx // 4) * 4 <= _SOA_MAX_NXP[dtype]
+            and soa_shared_bytes(nz, m, py, cfg.horizon, dtype) <= _MAX_SHARED):
+        return "shared"
+    return "global"
+
+
+def soa_scratch_rows(nz: int, m: int, py: int, horizon: int) -> int:
+    """Rows of the (rows, B) scratch of the SoA global instance
+    (``GlobalLayout`` of ``csrc/fused_qp_soa.cu``)."""
+    nx, nrow = horizon * m, horizon * py
+    return 2 * py * nz + 2 * nz + horizon * py * m + nrow + 5 * nx + 4 * nx * nx
+
+
+def check_soa_limits(nz: int, m: int, py: int, cfg: FusedQPConfig,
+                     dtype: torch.dtype) -> None:
+    """The SoA kernel's own limit: its global instance keeps the
+    per-channel vectors (N*py weights, N*m bounds twice) in the default
+    48 KB of shared memory. The shared instance has none beyond the
+    shapes :func:`soa_instance` sends it."""
+    if soa_instance(nz, m, py, cfg, dtype) == "shared":
+        return
+    item = torch.finfo(dtype).bits // 8
+    need = cfg.horizon * (py + 2 * m) * item
+    if need > _DEFAULT_SHARED:
+        raise ValueError(f"fused_qp_solve_soa needs {need} bytes of shared "
+                         f"memory for N*(py + 2m) per-channel values, over "
+                         f"{_DEFAULT_SHARED}")
 
 
 def check_inputs(a: Tensor, b: Tensor, cyc: Tensor, z0: Tensor, yr: Tensor,

@@ -23,8 +23,13 @@ from koopmanx_torch.ops import FusedQPConfig, fused_qp_solve, fused_qp_solve_soa
 from koopmanx_torch.ops.fused_qp import (  # noqa: E402
     check_aos_limits,
     check_inputs,
+    check_soa_limits,
     fused_qp_reference,
+    soa_instance,
+    soa_scratch_rows,
+    soa_shared_bytes,
 )
+from koopmanx_torch.ops.fused_qp_soa import launch_shape as soa_launch_shape  # noqa: E402
 from koopmanx_torch.types import LinearModel, QPData  # noqa: E402
 
 NZ, N = 8, 10  # the tests/test_pallas.py fixture: B=8, nz=8, m=1, py=2, N=10
@@ -42,14 +47,16 @@ def _fused_inputs(seed, batch=8, m=1, py=2, horizon=N):
     return a, b, cyc, z0, yr, warm
 
 
-def _cfg_kw(m=1, schulz=16, iters=60, horizon=N):
+def _cfg_kw(m=1, schulz=16, iters=60, horizon=N, tile=8):
     return dict(horizon=horizon, iters=iters, rho=0.1, schulz_iters=schulz,
-                tile=8, rdiag=(1e-4,) * m, u_lo=(-2.0,) * m, u_hi=(2.0,) * m)
+                tile=tile, rdiag=(1e-4,) * m, u_lo=(-2.0,) * m, u_hi=(2.0,) * m)
 
 
-@pytest.mark.parametrize("layout", ["aos", "soa"])
-@pytest.mark.parametrize("m,schulz", [(1, 16), (1, 24), (2, 16)])
-def test_fused_reference_matches_pallas_interpret(layout, m, schulz):
+@pytest.mark.parametrize("m,schulz,batch,layout", [
+    pytest.param(m, schulz, 8, layout, id=f"{m}-{schulz}-{layout}")
+    for m, schulz in [(1, 16), (1, 24), (2, 16)] for layout in ("aos", "soa")
+] + [pytest.param(1, 16, 37, "soa", id="1-16-B37-soa")])
+def test_fused_reference_matches_pallas_interpret(m, schulz, batch, layout):
     """The plain version against each TPU kernel, same f64 inputs, to
     1e-9. Same arithmetic; the sums run in another order, and for the AoS
     kernel with m = 2 (py = 2) F2' comes from its dual Markov recursion
@@ -57,15 +64,16 @@ def test_fused_reference_matches_pallas_interpret(layout, m, schulz):
     rounding differences of ~1e-16 relative, which the unconverged
     Newton-Schulz inverse (schulz_iters 16) carries through with their
     relative size and 60 contracting ADMM iterations do not amplify
-    (measured ~1e-12)."""
-    inputs = _fused_inputs(10 * m + schulz, m=m)
-    kw = _cfg_kw(m=m, schulz=schulz)
+    (measured ~1e-12). B = 37, no multiple of the CUDA kernel's 32 (or
+    16) scenarios a block, runs as one TPU tile of 37 lanes."""
+    inputs = _fused_inputs(10 * m + schulz, batch=batch, m=m)
+    kw = _cfg_kw(m=m, schulz=schulz, tile=8 if batch % 8 == 0 else batch)
     jfn = j_fused_aos if layout == "aos" else j_fused_soa
     ref = jfn(*(jnp.asarray(v) for v in inputs), JFusedQPConfig(**kw),
               interpret=True)
     out = fused_qp_reference(*(torch.tensor(v) for v in inputs),
                              FusedQPConfig(**kw))
-    assert out.shape == (8, N * m)
+    assert out.shape == (batch, N * m)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-9)
 
 
@@ -223,3 +231,56 @@ def test_fused_wrappers_refuse_malformed_inputs():
         check_aos_limits(NZ, 1, 2, FusedQPConfig(horizon=100), torch.float64)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fused_qp_solve(*(t.to("meta") for t in good), cfg)
+    # the SoA kernel: its global instance's per-channel vectors in 48 KB
+    check_soa_limits(NZ, 1, 2, FusedQPConfig(), torch.float64)
+    check_soa_limits(NZ, 2, 2, FusedQPConfig(horizon=1100), torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        check_soa_limits(NZ, 2, 2, FusedQPConfig(horizon=1100), torch.float64)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_qp_solve_soa(*(t.to("meta") for t in good), cfg)
+    with pytest.raises(TypeError):
+        soa_launch_shape(torch.float16, 8, NZ, 1, 2, cfg)
+
+
+def _soa_layout_bytes(nz, m, py, horizon, dtype):
+    """``SmemLayout`` of ``csrc/fused_qp_soa.cu``, spelled out: X and T
+    (NXP^2 each; the prologue's A, B, CyC, two CyC A^j, two A^j z0, the
+    Markov blocks and the error in T's space where they fit), q, two rhs
+    buffers, two norm partials per row group (NXP / 2 of them); S lanes
+    each (32 in float32, 16 in float64); then Qbar."""
+    nxp = -(-horizon * m // 4) * 4
+    prologue = (nz * nz + nz * m + py * nz * 3 + nz * 2 + horizon * py * m
+                + horizon * py)
+    per_lane = 2 * nxp * nxp + max(0, prologue - nxp * nxp) + 3 * nxp + nxp
+    lanes = 32 if dtype == torch.float32 else 16
+    item = 4 if dtype == torch.float32 else 8
+    return item * (per_lane * lanes + horizon * py)
+
+
+@pytest.mark.parametrize("nz,m,horizon,dtype,instance,nbytes", [
+    (8, 1, 20, torch.float32, "shared", 112_800),  # the flagship's shapes
+    (8, 1, 20, torch.float64, "shared", 112_960),
+    (8, 1, 10, torch.float64, "shared", None),  # the convergence gate's N
+    (8, 1, 24, torch.float32, "shared", None),  # the widest float32 NXP
+    (8, 1, 24, torch.float64, "global", None),  # past float64's NXP of 20
+    (8, 2, 20, torch.float32, "global", None),  # N*m = 40
+    (64, 1, 20, torch.float32, "global", None),  # prologue past 227 KB
+])
+def test_soa_instance_follows_the_kernel_layout(nz, m, horizon, dtype,
+                                                instance, nbytes):
+    """The SoA wrapper's choice of instance and its shared-memory sizes
+    against the kernel's layout rules: the shared instance where N*m,
+    rounded up to 4, is at most 24 (float32) or 20 (float64) and its block
+    fits 227 KB; the global instance, with its (rows, B) scratch,
+    elsewhere. The product order is the first design's, so no emulation
+    of another order is needed."""
+    cfg = FusedQPConfig(horizon=horizon)
+    got = soa_shared_bytes(nz, m, 2, horizon, dtype)
+    assert got == _soa_layout_bytes(nz, m, 2, horizon, dtype)
+    if nbytes is not None:
+        assert got == nbytes
+    assert soa_instance(nz, m, 2, cfg, dtype) == instance
+    nx = horizon * m
+    assert soa_scratch_rows(nz, m, 2, horizon) == (
+        2 * 2 * nz + 2 * nz + horizon * 2 * m + horizon * 2 + 5 * nx
+        + 4 * nx * nx)
