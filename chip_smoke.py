@@ -8,32 +8,41 @@ replacing a TPU kernel of the JAX package:
 
 - ``box_admm`` (``csrc/box_admm.cu``; ``koopmanx/ops/qp_pallas_box.py``),
   on the flagship loop's path;
-- ``fused_qp`` (``csrc/fused_qp.cu``, AoS; ``koopmanx/ops/qp_pallas.py``)
-  and ``fused_qp_soa`` (``csrc/fused_qp_soa.cu``, scenario-in-lanes, 32
-  scenarios a block in float32 and 16 in float64 with the working set in
-  shared memory and registers, or one thread per scenario with a global
-  scratch for larger shapes; ``koopmanx/ops/qp_pallas_soa.py``), the whole
-  condensed QP of one control step in one launch, behind their own entry
-  points.
+- ``fused_qp`` (``csrc/fused_qp.cu``, AoS, one warp per scenario: for
+  N*m <= 32 the Newton-Schulz products as 4 x 4 register tiles and the
+  KKT-inverse row in registers, above that the working set in shared
+  memory; ``koopmanx/ops/qp_pallas.py``) and ``fused_qp_soa``
+  (``csrc/fused_qp_soa.cu``, scenario-in-lanes, 32 scenarios a block in
+  float32 and 16 in float64 with the working set in shared memory and
+  registers, or one thread per scenario with a global scratch for larger
+  shapes; ``koopmanx/ops/qp_pallas_soa.py``), the whole condensed QP of one
+  control step in one launch, behind their own entry points.
 
 Phases, each of which fails the run on error:
 
 1. build every kernel from ``koopmanx_torch/csrc`` (one nvcc per source,
    all started together), print each one's register, stack and spill
-   report (and fail if ptxas gives a ``fused_qp_soa`` instance any stack
-   or spills) and the card's name and power limit;
+   report (and fail if ptxas gives a ``fused_qp`` or ``fused_qp_soa``
+   instance any stack or spills) and the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes of its path (float32, B=8192 and a ragged B=1000, float64), and
    time both; ``box_admm`` also at every compiled instance (nx = 5 and 32,
    the smallest and widest with the KKT-inverse row in registers; 33 and
    128, the first and widest with it in shared memory; B=1000, float32 and
    float64), each case with its registers, block size, resident warps per
-   SM and waves; ``fused_qp_soa`` also at N = 10 (the convergence gate's
-   shape) and at m = 2 (N*m = 40, its global instance), float32 and
-   float64 at B=1000, each case with its instance, registers, shared bytes
-   per block, warps per block, resident warps per SM and waves; the fused
-   kernels' inputs hold a few poisoned (non-finite) scenarios, which must
-   come out as in the plain version and leave their neighbours alone;
+   SM and waves; both fused kernels also at N = 10 (the convergence
+   gate's shape; B3's shared instance at NXP = 12, B2's register instance
+   at NXP = 12) and at m = 2 (N*m = 40: B3's global instance, B2's first
+   design), ``fused_qp`` at N = 8, m = 4 (N*m = 32, its widest register
+   instance), float32 and float64 at B=1000, each fused case with its
+   instance, registers, shared bytes per block, warps per block, resident
+   warps per SM and waves; the fused kernels' inputs hold a few poisoned
+   (non-finite) scenarios, which must come out as in the plain version and
+   leave their neighbours alone. With ``--parent-fused-qp LIB`` (the
+   ``libfused_qp.so`` of another checkout, built from its own source) it
+   also prints, without gating, max |kernel - LIB's kernel| on the float32
+   B=8192 inputs and both kernels' device times in turns (LIB, this, this,
+   LIB);
 3. drive the slice-1 path through the user entry points: the flagship
    batched Duffing closed loop (8192 scenarios x 200 steps, f32, horizon
    20, plant switch at step 100, qp_backend='pallas'), with every kernel
@@ -57,12 +66,14 @@ Phases, each of which fails the run on error:
    at 24 Newton-Schulz steps and 800 iterations within 5e-3 of the port's
    ``solve_qp`` (float64).
 
-Prints the kernels JSON line, a slice timing JSON line, the card line
+Run with no arguments it needs one card. Prints the kernels JSON line, a
+slice timing JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -325,24 +336,61 @@ def ptxas_stack_and_spills(log: str):
     return out
 
 
-# B3's cases beyond the three both fused kernels run, one for each edge of
-# its design: (dtype, batch, horizon, m). N = 10 is the convergence gate's
-# shape (shared instance, NXP = 12); m = 2 gives N*m = 40, past the shared
-# instance (global instance); B = 1000 is no multiple of 32 (nor of the
-# global instance's 64)
+def fused_qp_ptxas_registers(regs, dtype: str, shape, nx: int):
+    """ptxas's registers for the AoS instance that ``shape``
+    (:func:`koopmanx_torch.ops.fused_qp.aos_launch_shape`) names, or None."""
+    t = "f" if dtype == "float32" else "d"
+    if shape.instance == "regs":  # fused_qp_regs<T, NXP>
+        key = f"fused_qp_regsI{t}Li{shape.nxp}E"
+    else:  # fused_qp_generic<T, ROWS>, ROWS = 1, 2 or 4
+        rows = -(-nx // 32)
+        key = f"fused_qp_genericI{t}Li{1 if rows == 1 else 2 if rows == 2 else 4}E"
+    found = [n for name, n in regs.items() if key in name]
+    return found[0] if len(found) == 1 else None
+
+
+# Cases beyond the three both fused kernels run, one for each edge of their
+# designs: (dtype, batch, horizon, m). N = 10 is the convergence gate's
+# shape (B3's shared instance and B2's register instance, NXP = 12 both);
+# m = 2 gives N*m = 40, past both (B3's global instance, B2's first
+# design); N = 8, m = 4 gives N*m = 32, B2's widest register instance (two
+# 4 x 4 tiles on every lane). B = 1000 is no multiple of 32 (nor of the
+# global instance's 64, nor of 8 warps a block)
 SOA_EDGES = (("float32", 1000, 10, 1), ("float64", 1000, 10, 1),
              ("float32", 1000, HORIZON, 2), ("float64", 1000, HORIZON, 2))
+AOS_EDGES = (("float32", 1000, 8, 4), ("float64", 1000, 8, 4))
 
 
-def phase_fused_checks(device, ptxas_regs=None):
-    """Both fused kernels vs the plain version on the card, with poisoned
-    scenarios (float32 at B=8192 and 1000, float64 at 1000), then B3 at
-    ``SOA_EDGES``; every B3 case with its instance and launch shape.
-    Returns their kernels-line entries (float32, B=8192). ``ptxas_regs``
-    is :func:`ptxas_registers` of phase 1's build of B3."""
+def parent_fused_qp(path: str):
+    """``fused_qp_solve``'s launch through another build of the AoS kernel
+    (``path``, a ``libfused_qp.so`` with the same C interface), counted
+    nowhere."""
+    import torch
+    from koopmanx_torch.ops.fused_qp import KernelLib
+
+    lib = KernelLib("fused_qp", n_ptrs=7, path=os.path.abspath(path))
+
+    def solve(a, b, cyc, z0, yr, warm, cfg):
+        u = torch.empty_like(warm)
+        lib.launch([t.data_ptr() for t in (a, b, cyc, z0, yr, warm, u)],
+                   [a.shape[0], a.shape[-1], b.shape[-1], cyc.shape[-2],
+                    cfg.horizon], cfg, a.dtype, a.device)
+        return u
+
+    return solve
+
+
+def phase_fused_checks(device, ptxas=None, names=("fused_qp", "fused_qp_soa"),
+                       parent_lib=None):
+    """The fused kernels in ``names`` vs the plain version on the card, with
+    poisoned scenarios (float32 at B=8192 and 1000, float64 at 1000), then
+    at ``SOA_EDGES`` (both) and ``AOS_EDGES`` (B2); every case with its
+    instance and launch shape. Returns their kernels-line entries (float32,
+    B=8192). ``ptxas`` maps a kernel's name to :func:`ptxas_registers` of
+    phase 1's build of it. ``parent_lib``: see ``--parent-fused-qp``."""
     import torch
     from koopmanx_torch.ops import FusedQPConfig, fused_qp_solve, fused_qp_solve_soa
-    from koopmanx_torch.ops.fused_qp import fused_qp_reference
+    from koopmanx_torch.ops.fused_qp import aos_launch_shape, fused_qp_reference
     from koopmanx_torch.ops.fused_qp_soa import launch_shape as soa_launch_shape
 
     kernels = {"fused_qp": (fused_qp_solve, "koopmanx_torch/csrc/fused_qp.cu",
@@ -352,12 +400,17 @@ def phase_fused_checks(device, ptxas_regs=None):
                                 "koopmanx_torch/csrc/fused_qp_soa.cu",
                                 "koopmanx/ops/qp_pallas_soa.py:189"
                                 " (fused_qp_solve_soa; pallas_call at :227)")}
+    ptxas = ptxas or {}
     runs = [(d, b, HORIZON, M_IN, tuple(kernels))
             for d, b in (("float32", BATCH), ("float32", 1000),
                          ("float64", 1000))]
-    runs += [(*edge, ("fused_qp_soa",)) for edge in SOA_EDGES]
+    runs += [(*edge, tuple(kernels)) for edge in SOA_EDGES]
+    runs += [(*edge, ("fused_qp",)) for edge in AOS_EDGES]
     entries = {}
-    for dname, batch, horizon, m, names in runs:
+    for dname, batch, horizon, m, case_names in runs:
+        case_names = [n for n in case_names if n in names]
+        if not case_names:
+            continue
         dtype = getattr(torch, dname)
         cfg = FusedQPConfig(horizon=horizon, iters=ITERS, schulz_iters=SCHULZ)
         args, bad = fused_inputs(batch, dtype, device, seed=batch, m=m,
@@ -367,7 +420,7 @@ def phase_fused_checks(device, ptxas_regs=None):
             ref.double(), fused_qp_reference(*(t.double() for t in args), cfg))[0]
         clean = torch.ones(batch, dtype=torch.bool, device=device)
         clean[bad] = False
-        for name in names:
+        for name in case_names:
             fn, source, replaces = kernels[name]
             out = fn(*args, cfg)
             torch.cuda.synchronize()
@@ -379,22 +432,23 @@ def phase_fused_checks(device, ptxas_regs=None):
                     "poisoned_all_nan": int(out[bad].isnan().all(-1).sum()),
                     "clean_finite": bool(torch.isfinite(out[clean]).all()),
                     "floor_plain_f32_vs_f64": floor}
-            shape_note = ""
             if name == "fused_qp_soa":
                 shape = soa_launch_shape(dtype, batch, NZ, m, PY, cfg)
-                regs = fused_qp_soa_ptxas_registers(ptxas_regs or {}, dname,
-                                                    shape)
-                case["launch"] = {**shape._asdict(),
-                                  "registers_from": "runtime"}
-                if regs is not None:
-                    case["launch"].update(registers=regs,
-                                          registers_from="ptxas")
-                shape_note = (f"; instance {shape.instance} (NXP {shape.nxp}), "
-                              f"{case['launch']['registers']} registers, "
-                              f"{shape.shared_bytes} shared bytes/block, "
-                              f"{shape.warps_per_block} warps/block, "
-                              f"{shape.resident_warps_per_sm} resident "
-                              f"warps/SM, {shape.waves} waves")
+                regs = fused_qp_soa_ptxas_registers(ptxas.get(name, {}),
+                                                    dname, shape)
+            else:
+                shape = aos_launch_shape(dtype, batch, NZ, m, PY, cfg)
+                regs = fused_qp_ptxas_registers(ptxas.get(name, {}), dname,
+                                                shape, horizon * m)
+            case["launch"] = {**shape._asdict(), "registers_from": "runtime"}
+            if regs is not None:
+                case["launch"].update(registers=regs, registers_from="ptxas")
+            shape_note = (f"; instance {shape.instance} (NXP {shape.nxp}), "
+                          f"{case['launch']['registers']} registers, "
+                          f"{shape.shared_bytes} shared bytes/block, "
+                          f"{shape.warps_per_block} warps/block, "
+                          f"{shape.resident_warps_per_sm} resident "
+                          f"warps/SM, {shape.waves} waves")
             print(f"kernel {name} {dname} B={batch} N={horizon} m={m}: "
                   f"max|kernel-plain| = {err:.3e} (tol {case['tol']:.0e}), "
                   f"NaN/inf pattern same {same}, poisoned all-NaN "
@@ -422,8 +476,30 @@ def phase_fused_checks(device, ptxas_regs=None):
                               "horizon": horizon, "iters": ITERS,
                               "schulz_iters": SCHULZ, "dtype": dname},
                     "checks": []}
+                if name == "fused_qp" and parent_lib:
+                    entries[name]["parent"] = compare_parent(
+                        parent_fused_qp(parent_lib), args, cfg, out)
             entries[name]["checks"].append(case)
     return entries
+
+
+def compare_parent(parent, args, cfg, out):
+    """Not gated: max |kernel - parent kernel| on the same inputs (where
+    both are finite; the NaN/inf patterns beside it), and both kernels'
+    device times in turns: parent, this, this, parent."""
+    from koopmanx_torch.ops import fused_qp_solve
+
+    ref = parent(*args, cfg)
+    err, same = compare_fused(out, ref)
+    turns = [device_ms(lambda f=f: f(*args, cfg), reps=20)
+             for f in (parent, fused_qp_solve, fused_qp_solve, parent)]
+    report = {"max_abs_diff": err, "nan_inf_pattern_same": same,
+              "parent_ms": [turns[0], turns[3]], "ms": turns[1:3]}
+    print(f"kernel fused_qp vs parent: max|kernel-parent| = {err:.3e}, "
+          f"NaN/inf pattern same {same}; device ms parent {turns[0]:.5f}, "
+          f"this {turns[1]:.5f}, this {turns[2]:.5f}, parent {turns[3]:.5f}",
+          flush=True)
+    return report
 
 
 def kernel_counters():
@@ -718,6 +794,11 @@ def check_loop(carry, log, name: str, steps: int = STEPS):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent-fused-qp", metavar="LIB",
+                        help="libfused_qp.so of another checkout, held "
+                             "against this one's (not gated)")
+    opts = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -746,18 +827,21 @@ def main() -> int:
                                                 "spill", "error")):
                 print(f"nvcc {name}: {line.strip()}", flush=True)
     print(f"phase 1 build: {sorted(reports)} in {build_s:.1f} s", flush=True)
-    for kernel, stack, spill_st, spill_ld in ptxas_stack_and_spills(
-            reports.get("fused_qp_soa", "")):
-        if stack or spill_st or spill_ld:
-            fail(f"ptxas gives {kernel} {stack} bytes of stack, "
-                 f"{spill_st}/{spill_ld} bytes of spill stores/loads")
+    for name in ("fused_qp", "fused_qp_soa"):
+        for kernel, stack, spill_st, spill_ld in ptxas_stack_and_spills(
+                reports.get(name, "")):
+            if stack or spill_st or spill_ld:
+                fail(f"ptxas gives {kernel} {stack} bytes of stack, "
+                     f"{spill_st}/{spill_ld} bytes of spill stores/loads")
     card = card_line()
 
     # ---- 2. kernels vs plain versions ----
     entry = phase_kernel_checks(
         device, ptxas_registers(reports.get("box_admm", "")))
     fused_entries = phase_fused_checks(
-        device, ptxas_registers(reports.get("fused_qp_soa", "")))
+        device, {name: ptxas_registers(reports.get(name, ""))
+                 for name in ("fused_qp", "fused_qp_soa")},
+        parent_lib=opts.parent_fused_qp)
 
     # ---- 3. the main path through the kernel ----
     run_kernel = run_loop("pallas", device)

@@ -1,12 +1,16 @@
 """Fused condensed-QP solve: the AoS CUDA kernel and the plain version.
 
 Replaces the TPU kernel ``koopmanx/ops/qp_pallas.py::fused_qp_solve``
-(body ``_kernel`` :55-211) with ``koopmanx_torch/csrc/fused_qp.cu`` (one
-warp per scenario, the working set in shared memory; see the note at the
-top of the source for its bound and design). ``ops/fused_qp_soa.py`` holds
-the scenario-in-lanes counterpart of ``qp_pallas_soa.py``. Both kernels
-compute one function, whose plain PyTorch version is
-:func:`fused_qp_reference`.
+(body ``_kernel`` :55-211) with ``koopmanx_torch/csrc/fused_qp.cu``, one
+warp per scenario. For N*m <= 32 its register instance runs the
+Newton-Schulz products as 4 x 4 register tiles (K', X, X' and T in the
+warp's shared memory) and keeps each lane's row of the KKT inverse in
+registers for the ADMM; wider shapes run the first design, the working set
+in shared memory (:func:`aos_instance` picks one from the shapes; see the
+note at the top of the source for the bound and the design).
+``ops/fused_qp_soa.py`` holds the scenario-in-lanes counterpart of
+``qp_pallas_soa.py``. Both kernels compute one function, whose plain
+PyTorch version is :func:`fused_qp_reference`.
 
 The function: the whole box-constrained output-tracking MPC QP of one
 control step, built and solved per scenario in one launch:
@@ -54,9 +58,11 @@ class FusedQPConfig(NamedTuple):
 
     ``tile`` (scenarios per TPU kernel instance) is kept so that a JAX
     config carries over; the CUDA kernels do not read it: the AoS kernel
-    gives each scenario one warp, the SoA kernel 32 scenarios to a block
-    in float32 and 16 in float64 (one thread each where the shape is too
-    large for its shared instance), and each sizes its blocks itself."""
+    gives each scenario one warp (1, 2, 4 or 8 warps a block, whichever
+    covers the batch in the fewest waves, for its register instance), the
+    SoA kernel 32 scenarios to a block in float32 and 16 in float64 (one
+    thread each where the shape is too large for its shared instance), and
+    each sizes its blocks itself."""
 
     horizon: int = 20
     iters: int = 60
@@ -141,18 +147,54 @@ def fused_qp_reference(a: Tensor, b: Tensor, cyc: Tensor, z0: Tensor,
 
 MAX_CHANNELS = 16  # entries of qdiag/rdiag/u_lo/u_hi the kernels carry
 _MAX_NX = 128  # the AoS kernel keeps ceil(N*m / 32) <= 4 ADMM rows per lane
+_MAX_REGS_NX = 32  # the widest N*m of the AoS register instance
 _MAX_SHARED = 227 * 1024  # shared memory one block may use on Hopper
 
 
+def _align16(n: int, item: int) -> int:
+    """``n`` elements rounded up to a whole number of 16 bytes."""
+    per = 16 // item
+    return -(-n // per) * per
+
+
 def aos_shared_bytes(nz: int, m: int, py: int, horizon: int,
-                     itemsize: int) -> int:
-    """Shared memory one warp of the AoS kernel holds (the ``Layout`` of
-    ``csrc/fused_qp.cu``): A, B, CyC and two CyC A^j buffers, two state
-    buffers, the Markov blocks, the weighted error and Qbar, q, rhs, and
-    K, X and two Newton-Schulz buffers."""
+                     dtype: torch.dtype, instance: str = "generic") -> int:
+    """Shared memory one warp (one scenario) of the AoS kernel holds.
+
+    ``"generic"`` (``Layout`` of ``csrc/fused_qp.cu``, the first design):
+    A, B, CyC and two CyC A^j buffers, two state buffers, the Markov blocks
+    and the weighted error (the prologue), Qbar, q, rhs, and K, X and two
+    Newton-Schulz buffers, N*m x N*m each, back to back.
+
+    ``"regs"`` (``RegsLayout``): K', then X, X' and T (NXP x NXP each, NXP
+    = N*m rounded up to 4; the prologue's arrays share their space, which
+    is at least the prologue's size), two rhs buffers and q (NXP each),
+    Qbar; K', the X-X'-T space, rhs and the whole slice padded to 16
+    bytes."""
+    item = torch.finfo(dtype).bits // 8
     nx, nrow = horizon * m, horizon * py
-    return itemsize * (nz * nz + nz * m + 3 * py * nz + 2 * nz
-                       + horizon * py * m + 2 * nrow + 2 * nx + 4 * nx * nx)
+    prologue = (nz * nz + nz * m + 3 * py * nz + 2 * nz + horizon * py * m
+                + nrow)
+    if instance == "generic":
+        return item * (prologue + nrow + 2 * nx + 4 * nx * nx)
+    if instance != "regs":
+        raise ValueError(f"AoS instance is 'regs' or 'generic', got {instance!r}")
+    nxp = -(-nx // 4) * 4
+    sq = nxp * nxp
+    elems = sq + _align16(max(3 * sq, prologue), item) + 3 * nxp + nrow
+    return item * _align16(elems, item)
+
+
+def aos_instance(nz: int, m: int, py: int, cfg: FusedQPConfig,
+                 dtype: torch.dtype) -> str:
+    """The AoS kernel's instance for a shape: ``"regs"`` (Newton-Schulz
+    products as register tiles, the KKT-inverse row in registers) where
+    N*m <= 32 and its warp's slice fits 227 KB, else ``"generic"`` (the
+    first design). ``csrc/fused_qp.cu::dispatch`` applies the same rule."""
+    if (cfg.horizon * m <= _MAX_REGS_NX and aos_shared_bytes(
+            nz, m, py, cfg.horizon, dtype, "regs") <= _MAX_SHARED):
+        return "regs"
+    return "generic"
 
 
 # the SoA kernel's shared instance: scenarios per block, rows per thread,
@@ -253,33 +295,38 @@ def check_inputs(a: Tensor, b: Tensor, cyc: Tensor, z0: Tensor, yr: Tensor,
 def check_aos_limits(nz: int, m: int, py: int, cfg: FusedQPConfig,
                      dtype: torch.dtype) -> None:
     """The AoS kernel's own limits: N*m <= 128 (its ADMM rows live in
-    registers, at most four per lane) and one warp's working set within a
-    block's shared memory, which bounds nz, N*py and N*m together."""
+    registers, at most four per lane) and one warp's working set in the
+    first design's layout within a block's shared memory, which bounds nz,
+    N*py and N*m together. (Every shape within them runs: the register
+    instance where :func:`aos_instance` picks it, the first design
+    elsewhere.)"""
     nx = cfg.horizon * m
     if nx > _MAX_NX:
         raise ValueError(f"fused_qp_solve takes N*m <= {_MAX_NX}, got {nx}")
-    item = torch.finfo(dtype).bits // 8
-    need = aos_shared_bytes(nz, m, py, cfg.horizon, item)
+    need = aos_shared_bytes(nz, m, py, cfg.horizon, dtype)
     if need > _MAX_SHARED:
         raise ValueError(f"fused_qp_solve needs {need} bytes of shared memory "
                          f"per scenario, over the {_MAX_SHARED} a block has")
 
 
 class KernelLib:
-    """One fused-QP library from ``csrc/<name>.cu``, loaded at first use.
-    Each ``<name>_f32``/``_f64`` takes the device pointers (``n_ptrs`` of
-    them), the sizes, the scalars, the four per-channel host arrays with
-    their lengths, and the stream; it returns a ``cudaError_t``."""
+    """One fused-QP library from ``csrc/<name>.cu``, loaded at first use
+    (or the already built library at ``path``, which exports the same C
+    functions). Each ``<name>_f32``/``_f64`` takes the device pointers
+    (``n_ptrs`` of them), the sizes, the scalars, the four per-channel host
+    arrays with their lengths, and the stream; it returns a
+    ``cudaError_t``."""
 
-    def __init__(self, name: str, n_ptrs: int):
-        self.name, self.n_ptrs = name, n_ptrs
+    def __init__(self, name: str, n_ptrs: int, path: str = None):
+        self.name, self.n_ptrs, self.path = name, n_ptrs, path
         self._lib = None
         self._lock = threading.Lock()
 
     def load(self):
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(build.ensure_built(self.name)))
+                lib = ctypes.CDLL(str(self.path
+                                      or build.ensure_built(self.name)))
                 args = ([ctypes.c_void_p] * self.n_ptrs + [ctypes.c_int] * 7
                         + [ctypes.c_double] * 4
                         + [ctypes.c_void_p, ctypes.c_int] * 4
@@ -326,7 +373,8 @@ def fused_qp_solve(a: Tensor, b: Tensor, cyc: Tensor, z0: Tensor,
     z0 (B, nz), yr (B, N*py), warm (B, N*m); returns (B, N*m). Any B.
 
     On CPU tensors this is :func:`fused_qp_reference`. On CUDA tensors it
-    launches the kernel on the current stream, or raises on a wrong
+    launches the kernel on the current stream (the instance that
+    :func:`aos_instance` names for the shapes), or raises on a wrong
     dtype, shape, device or contiguity, on sizes beyond the kernel's
     limits, or on a failed launch; it never falls back."""
     if a.device.type == "cpu":
@@ -343,3 +391,37 @@ def fused_qp_solve(a: Tensor, b: Tensor, cyc: Tensor, z0: Tensor,
 
 
 fused_qp_solve.launches = 0
+
+
+class AoSLaunchShape(NamedTuple):
+    instance: str  # "regs" or "generic"
+    nxp: int  # N*m rounded up to 4 (register instance), else 0
+    registers: int  # per thread, as ptxas allotted them
+    shared_bytes: int  # dynamic shared memory per block
+    warps_per_block: int  # = scenarios per block
+    resident_warps_per_sm: int
+    waves: int  # rounds of resident blocks that cover the batch
+
+
+def aos_launch_shape(dtype: torch.dtype, batch: int, nz: int, m: int, py: int,
+                     cfg: FusedQPConfig) -> AoSLaunchShape:
+    """How :func:`fused_qp_solve` launches the kernel at a shape on the
+    current CUDA device (the kernel's own occupancy query; no launch)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"fused QP takes float32 or float64, got {dtype}")
+    instance = aos_instance(nz, m, py, cfg, dtype)
+    lib = _AOS.load()
+    fn = lib.fused_qp_launch_shape
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(int(dtype == torch.float64), batch, nz, m, py, cfg.horizon,
+             ctypes.addressof(out))
+    if err != 0:
+        msg = lib.fused_qp_error_string(err).decode()
+        raise RuntimeError(f"fused_qp launch shape failed: {msg} ({err})")
+    regs, smem, warps, resident, waves, nxp = out
+    if (nxp > 0) != (instance == "regs"):
+        raise RuntimeError(f"fused_qp launches NXP {nxp}, but aos_instance "
+                           f"names {instance!r} for this shape")
+    return AoSLaunchShape(instance, nxp, regs, smem, warps, resident, waves)

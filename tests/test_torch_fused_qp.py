@@ -21,6 +21,9 @@ from koopmanx_torch.control import condensed as tc  # noqa: E402
 from koopmanx_torch.control import qp as tqp  # noqa: E402
 from koopmanx_torch.ops import FusedQPConfig, fused_qp_solve, fused_qp_solve_soa  # noqa: E402
 from koopmanx_torch.ops.fused_qp import (  # noqa: E402
+    aos_instance,
+    aos_launch_shape,
+    aos_shared_bytes,
     check_aos_limits,
     check_inputs,
     check_soa_limits,
@@ -240,6 +243,8 @@ def test_fused_wrappers_refuse_malformed_inputs():
         fused_qp_solve_soa(*(t.to("meta") for t in good), cfg)
     with pytest.raises(TypeError):
         soa_launch_shape(torch.float16, 8, NZ, 1, 2, cfg)
+    with pytest.raises(TypeError):
+        aos_launch_shape(torch.float16, 8, NZ, 1, 2, cfg)
 
 
 def _soa_layout_bytes(nz, m, py, horizon, dtype):
@@ -284,3 +289,54 @@ def test_soa_instance_follows_the_kernel_layout(nz, m, horizon, dtype,
     assert soa_scratch_rows(nz, m, 2, horizon) == (
         2 * 2 * nz + 2 * nz + horizon * 2 * m + horizon * 2 + 5 * nx
         + 4 * nx * nx)
+
+
+def _aos_layout_bytes(nz, m, py, horizon, dtype, instance):
+    """One warp's slice of ``csrc/fused_qp.cu``, spelled out. The first
+    design (``Layout``): A (nz^2), B (nz m), CyC and two CyC A^j buffers
+    (py nz each), two A^j z0 buffers (nz each), the Markov blocks (N py m),
+    the error and Qbar (N py each), q and rhs (N m each), K, X, T and the
+    next X ((N m)^2 each). The register instance (``RegsLayout``, in
+    16-byte units): K' (NXP^2, NXP = N*m rounded up to 4), then X, X' and
+    T (3 NXP^2, or the prologue's arrays A ... error where they take more),
+    padded to 16 bytes; two rhs buffers and q (NXP each), Qbar (N py); the
+    whole padded to 16 bytes."""
+    item = 4 if dtype == torch.float32 else 8
+    nx, nrow = horizon * m, horizon * py
+    prologue = (nz * nz + nz * m + py * nz * 3 + nz * 2 + nrow * m + nrow)
+    if instance == "generic":
+        return item * (prologue + nrow + nx + nx + 4 * nx * nx)
+    nxp = -(-nx // 4) * 4
+    pad = lambda nbytes: -(-nbytes // 16) * 16
+    head = pad(item * nxp * nxp) + pad(item * max(3 * nxp * nxp, prologue))
+    return pad(head + item * (2 * nxp + nxp + nrow))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("horizon,m,instance,regs_f32", [
+    (10, 1, "regs", None),  # the convergence gate's N: NXP = 12, padded
+    (20, 1, "regs", 6_800),  # the flagship's shapes, NXP = 20
+    (24, 1, "regs", None),  # NXP = 24: two tiles on some lanes
+    (8, 4, "regs", None),  # N*m = 32, the widest register instance
+    (33, 1, "generic", None),  # past the register instance
+    (20, 2, "generic", None),  # N*m = 40
+], ids=["nx10", "nx20", "nx24", "nx32", "nx33", "nx40"])
+def test_aos_instance_follows_the_kernel_layout(horizon, m, instance,
+                                                regs_f32, dtype):
+    """The AoS wrapper's choice of instance and its shared-memory sizes
+    against the kernel's layout rules: the register instance for N*m <= 32
+    (its slice fits 227 KB at every such shape here), the first design
+    above; both layouts' sizes, and the first design's bounds the
+    wrapper's limits. The register instance's product order is the first
+    design's, so no emulation of another order is needed."""
+    cfg = FusedQPConfig(horizon=horizon)
+    for layout in ("generic", "regs"):
+        assert aos_shared_bytes(NZ, m, 2, horizon, dtype, layout) == (
+            _aos_layout_bytes(NZ, m, 2, horizon, dtype, layout))
+    regs = aos_shared_bytes(NZ, m, 2, horizon, dtype, "regs")
+    assert regs % 16 == 0
+    if regs_f32 is not None:
+        assert regs == regs_f32 * (1 if dtype == torch.float32 else 2)
+    assert aos_instance(NZ, m, 2, cfg, dtype) == instance
+    check_aos_limits(NZ, m, 2, cfg, dtype)  # every such shape is accepted
