@@ -29,8 +29,12 @@ Phases, each of which fails the run on error:
    time both; ``box_admm`` also at every compiled instance (nx = 5 and 32,
    the smallest and widest with the KKT-inverse row in registers; 33 and
    128, the first and widest with it in shared memory; B=1000, float32 and
-   float64), each case with its registers, block size, resident warps per
-   SM and waves; both fused kernels also at N = 10 (the convergence
+   float64), and at the other paths' inputs at B=8192 in float32 and
+   float64: nx = 10 (the shipped duffing preset of phase 8, register
+   instance 16) and nx = 20 with the tank path's per-scenario folded
+   bounds (phase 7: the first move's box cut by the applied window, down
+   to lo = hi), each case with its registers, block size, resident warps
+   per SM and waves; both fused kernels also at N = 10 (the convergence
    gate's shape; B3's shared instance at NXP = 12, B2's register instance
    at NXP = 12) and at m = 2 (N*m = 40: B3's global instance, B2's first
    design), ``fused_qp`` at N = 8, m = 4 (N*m = 32, its widest register
@@ -64,10 +68,27 @@ Phases, each of which fails the run on error:
    to the engine's own control solve and the Newton-Schulz residual. Then
    the convergence gate of tests/test_pallas.py at B=8192: both kernels
    at 24 Newton-Schulz steps and 800 iterations within 5e-3 of the port's
-   ``solve_qp`` (float64).
+   ``solve_qp`` (float64);
+7. drive the tank family's path, the JAX package's second benched workload
+   (``koopmanx_torch.configs.tank_bench_config``: 8192 scenarios with x0
+   ~ U[0, 2]^2, param_scale 0.15, thinplate RBF lift of 10 normalized, du
+   formulation with |du| <= 0.5 and the applied window [-8, 8] folded into
+   each scenario's first bounds, N = 20, the windowed estimator over 256
+   observations refit every 8th step past a 300-step warm-up, f32; 400
+   steps, the switch at step 200), through the kernel route and the plain
+   route, counts zeroed before each run and read after: 400 ``box_admm``
+   launches, then 0. Gates: everything finite, the du box, the applied
+   window and x >= 0 held, kernel vs plain route over the first 16 steps in
+   float64, and the float32 batch-mean control quality of the tracked
+   level x2 against r = 1. Prints both routes' warm wall time in turns;
+8. drive the shipped ``duffing`` preset (weights from
+   ``artifacts/duffing_kmae_encoder.mat``, normalized lift, horizon 10) at
+   8192 scenarios for 200 steps through the kernel route: 200 launches,
+   finite, |u| <= 2; its quality printed beside the random-init
+   flagship's.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
-slice timing JSON line, the card line
+slice timing JSON line, a tank timing JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -100,6 +121,8 @@ TOL = {"float32": 1e-5, "float64": 1e-12}
 # each compiled family: registers (nx rounded up to 8, up to 32), then
 # shared memory (up to 128)
 BOX_WIDTHS = (5, 32, 33, 128)
+# the shipped duffing preset's nx = N*m = 10 (phase 8; register instance 16)
+PRESET_NX = 10
 # plain vs kernel closed loop, identical but for that reassociation. During
 # the scratch-RLS warm-up the loop amplifies a round-off seed by many orders
 # of magnitude (tests/test_kkt_refine.py:53-59 documents it for the JAX
@@ -122,6 +145,12 @@ FUSED_TOL = {"float32": 5e-3, "float64": 1e-9}
 # tests/test_pallas.py:46-61: at convergence both kernels come within 5e-3
 # of the general solver (float64, N = 10, 24 Newton-Schulz steps)
 CONVERGED = {"horizon": 10, "iters": 800, "schulz_iters": 24, "tol": 5e-3}
+# phase 7: the tank bench (tank_bench_config) cut from the preset's 3000
+# steps to 400, which still cover the switch (step 200) and ~100 steps of
+# the refit cadence past the 300-step warm-up; its bounds
+TANK_STEPS, DU_MAX, APPLIED_MAX, BOUND_SLACK = 400, 0.5, 8.0, 1e-6
+# phase 8: the shipped duffing preset
+PRESET_STEPS = 200
 
 
 def fail(msg: str) -> None:
@@ -207,9 +236,35 @@ def box_admm_ptxas_registers(regs, dtype: str, nx: int):
     return found[0] if len(found) == 1 else None
 
 
-def box_inputs(batch: int, nx: int, dtype, device, seed: int):
+def folded_bounds(batch: int, nx: int, gen):
+    """The tank path's per-scenario bounds (m = 1): the du box on every
+    move, its first move intersected with the applied window
+    [-8 - u_prev, 8 - u_prev], lo0 = min(lo0, hi0), as
+    engine/core.py folds it. u_prev ~ U[-9, 9] covers both sides of the
+    window; pinned values give lo0 > -DU_MAX (u_prev < -7.5), hi0 = 0
+    (u_prev = 8) and lo0 = hi0 (|u_prev| > 8.5)."""
+    import torch
+
+    u_prev = 18.0 * torch.rand((batch, 1), generator=gen,
+                               dtype=torch.float64) - 9.0
+    pinned = torch.tensor([8.0, -8.0, 8.5, -8.5, 8.75, -8.75, 7.75, -7.75,
+                           -7.5, 0.0], dtype=torch.float64)
+    u_prev[:len(pinned), 0] = pinned
+    lo = torch.full((batch, nx), -DU_MAX, dtype=torch.float64)
+    hi = -lo
+    lo0 = torch.clamp(-APPLIED_MAX - u_prev, min=-DU_MAX)
+    hi0 = torch.clamp(APPLIED_MAX - u_prev, max=DU_MAX)
+    lo[:, :1] = torch.minimum(lo0, hi0)
+    hi[:, :1] = hi0
+    return lo, hi
+
+
+def box_inputs(batch: int, nx: int, dtype, device, seed: int,
+               folded: bool = False):
     """SPD box QPs built like tests/test_pallas.py:74-84, with the KKT
-    inverse and rho the solver computes (block-8 elimination)."""
+    inverse and rho the solver computes (block-8 elimination); one
+    +-1.5 box for every scenario, or ``folded``: the tank path's
+    per-scenario bounds (:func:`folded_bounds`)."""
     import torch
     from koopmanx_torch.control.qp import ADMMConfig, _effective_rho, box_kkt
     from koopmanx_torch.ops.linalg import spd_inverse
@@ -223,8 +278,13 @@ def box_inputs(batch: int, nx: int, dtype, device, seed: int):
     cfg = ADMMConfig(iters=ITERS, rho=0.1, kkt_block=8)
     rho = _effective_rho(p, cfg)
     minv = spd_inverse(box_kkt(p, cfg), block=8)
-    lo = torch.full_like(q, -1.5)
-    return (minv.contiguous(), q, lo, -lo, x0, torch.zeros_like(q), rho)
+    if folded:
+        lo, hi = (b.to(device=device, dtype=dtype)
+                  for b in folded_bounds(batch, nx, g))
+    else:
+        lo = torch.full_like(q, -1.5)
+        hi = -lo
+    return (minv.contiguous(), q, lo, hi, x0, torch.zeros_like(q), rho)
 
 
 def box_admm_bound_ms(batch: int, nx: int, iters: int, dtype: str):
@@ -569,7 +629,8 @@ def phase_fused_path(pipe, carry, device):
     err_pair, same_pair = compare_fused(u_aos, u_soa)
     control_solve = make_control_solver(pipe.engine_cfg, ref_fn, m)
     dec, s_engine = timed(lambda: control_solve(
-        replicate(params, BATCH), model, z, carry.warm_x, carry.warm_y, STEPS))
+        replicate(params, BATCH), model, z, carry.u_applied, carry.warm_x,
+        carry.warm_y, STEPS))
     gap = (u_aos[:, :m] - dec.u_applied).abs().amax(-1)
     p_mat, _ = fused_qp_terms(*args[:5], cfg)
     kkt, x_inv, _ = newton_schulz_kkt_inverse(p_mat, cfg)
@@ -670,13 +731,20 @@ def phase_kernel_checks(device, ptxas_regs=None):
     )
 
     f32, f64 = torch.float32, torch.float64
-    runs = [(f32, BATCH, HORIZON), (f32, 1000, HORIZON), (f64, 1000, HORIZON)]
-    runs += [(dtype, 1000, nx) for nx in BOX_WIDTHS for dtype in (f32, f64)]
+    runs = [(f32, BATCH, HORIZON, False), (f32, 1000, HORIZON, False),
+            (f64, 1000, HORIZON, False)]
+    runs += [(dtype, 1000, nx, False) for nx in BOX_WIDTHS
+             for dtype in (f32, f64)]
+    # the shipped duffing preset's width, and the tank path's folded
+    # per-scenario bounds at its width, both at the paths' batch
+    runs += [(dtype, BATCH, nx, folded)
+             for nx, folded in ((PRESET_NX, False), (HORIZON, True))
+             for dtype in (f32, f64)]
     cases = []
     main = None
-    for dtype, batch, nx in runs:
+    for dtype, batch, nx, folded in runs:
         name = str(dtype).replace("torch.", "")
-        args = box_inputs(batch, nx, dtype, device, seed=batch)
+        args = box_inputs(batch, nx, dtype, device, seed=batch, folded=folded)
         kw = dict(iters=ITERS, sigma=SIGMA, alpha=ALPHA)
         out = box_admm(*args, **kw)
         ref = box_admm_reference(*args, **kw)
@@ -686,10 +754,12 @@ def phase_kernel_checks(device, ptxas_regs=None):
         finite = all(bool(torch.isfinite(o).all()) for o in out)
         shape = launch_shape(dtype, batch, nx)
         case = {"dtype": name, "batch": batch, "nx": nx, "iters": ITERS,
+                "bounds": "folded" if folded else "shared",
                 "max_abs_err": err, "tol": TOL[name] * scale,
                 "launch": shape._asdict()}
         cases.append(case)
-        print(f"kernel box_admm {name} B={batch} nx={nx}: max|kernel-plain| ="
+        print(f"kernel box_admm {name} B={batch} nx={nx} {case['bounds']} "
+              f"bounds: max|kernel-plain| ="
               f" {err:.3e} (tol {case['tol']:.1e}); {shape.registers} "
               f"registers, {shape.warps_per_block} warps/block, "
               f"{shape.resident_warps_per_sm} resident warps/SM, "
@@ -791,6 +861,163 @@ def check_loop(carry, log, name: str, steps: int = STEPS):
         fail(f"{name} loop: |u| = {u_max} > 2")
     if tuple(log.x.shape) != (BATCH, steps, 2):
         fail(f"{name} loop: log.x shape {tuple(log.x.shape)}")
+
+
+def quality_x2(log, tail: int = 50):
+    """Batch-mean tracking MSE and steady-state error of the tank's tracked
+    level x2 against its reference (the single output channel)."""
+    err = log.x[..., 1] - log.r[..., 0]
+    return float((err ** 2).mean()), float(err[:, -tail:].abs().mean())
+
+
+def tank_loop(backend: str, device, steps: int = TANK_STEPS,
+              dtype: str = "float32"):
+    """The tank bench loop as a thunk, through the user entry points."""
+    import torch
+    from koopmanx_torch.configs import tank_bench_config
+    from koopmanx_torch.engine.scenario import sample_scenarios
+    from koopmanx_torch.run import build_pipeline, run_scenarios
+    from koopmanx_torch.systems.library import get_system
+
+    cfg = tank_bench_config(steps=steps, qp_backend=backend)
+    cfg.dtype = dtype
+    pipe = build_pipeline(cfg, device=device)
+    sc = sample_scenarios(get_system(cfg.system),
+                          torch.Generator().manual_seed(0), BATCH,
+                          x0_range=(0.0, 2.0), param_scale=0.15,
+                          dtype=getattr(torch, dtype), device=device)
+
+    def run():
+        return run_scenarios(pipe, sc)
+
+    run.pipe = pipe
+    return run
+
+
+def check_tank_loop(carry, log, name: str, steps: int = TANK_STEPS):
+    """Finite logs and final carry (ring and model included), the du box
+    per step (from u = 0), the applied window, x >= 0, the shapes."""
+    import torch
+
+    leaves = [log.x, log.u, carry.x, carry.u_applied, carry.warm_x,
+              *carry.model, *carry.rls]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        fail(f"tank {name} loop: non-finite logs or final carry")
+    u = torch.cat([torch.zeros_like(log.u[:, :1]), log.u], dim=1)
+    du = float((u[:, 1:] - u[:, :-1]).abs().max())
+    u_max, x_min = float(log.u.abs().max()), float(log.x.min())
+    if du > DU_MAX + BOUND_SLACK or u_max > APPLIED_MAX + BOUND_SLACK:
+        fail(f"tank {name} loop: |du| = {du}, |u| = {u_max}")
+    if x_min < 0.0 or float(carry.x.min()) < 0.0:
+        fail(f"tank {name} loop: x = {x_min} < 0")
+    if tuple(log.x.shape) != (BATCH, steps, 2):
+        fail(f"tank {name} loop: log.x shape {tuple(log.x.shape)}")
+    return {"du_max": du, "u_abs_max": u_max, "x_min": x_min}
+
+
+def phase_tank(device, card: str):
+    """Phase 7: the tank path through both routes, with its gates. Returns
+    the kernel route's launch counts."""
+    import torch
+    from koopmanx_torch.ops.box_admm import box_admm
+
+    run_kernel = tank_loop("pallas", device)
+    zero_counts()
+    (carry_k, log_k), cold_k = timed(run_kernel)
+    counts = read_counts()
+    print(f"phase 7 tank path (pallas): {cold_k:.2f} s cold, launches "
+          f"{counts}", flush=True)
+    if counts != {"box_admm": TANK_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+        fail(f"the tank path launched {counts} in {TANK_STEPS} steps")
+    bounds_k = check_tank_loop(carry_k, log_k, "pallas")
+
+    run_plain = tank_loop("xla", device)
+    box_admm.launches = 0
+    (carry_p, log_p), cold_p = timed(run_plain)
+    if box_admm.launches != 0:
+        fail("the tank plain route launched the kernel")
+    bounds_p = check_tank_loop(carry_p, log_p, "xla")
+    early = {}
+    for backend in ("pallas", "xla"):
+        carry, log = tank_loop(backend, device, LOOP_EARLY_STEPS, "float64")()
+        check_tank_loop(carry, log, f"{backend} float64", LOOP_EARLY_STEPS)
+        early[backend] = log.x
+    dx64 = float((early["pallas"] - early["xla"]).abs().max())
+    (mse_k, sse_k), (mse_p, sse_p) = quality_x2(log_k), quality_x2(log_p)
+    gate = {"dx_first16_f64": dx64, "dx_first16_f64_tol": LOOP_EARLY_TOL,
+            "dx_first16_f32": float((log_k.x[:, :LOOP_EARLY_STEPS]
+                                     - log_p.x[:, :LOOP_EARLY_STEPS])
+                                    .abs().max()),
+            "mse_x2_kernel": mse_k, "mse_x2_plain": mse_p,
+            "sse_x2_kernel": sse_k, "sse_x2_plain": sse_p,
+            "quality_rtol": QUALITY_RTOL, "bounds_kernel": bounds_k,
+            "bounds_plain": bounds_p, "bound_slack": BOUND_SLACK}
+    print("phase 7 gate " + json.dumps(gate), flush=True)
+    if not dx64 <= LOOP_EARLY_TOL:
+        fail(f"float64 tank kernel and plain loops differ by {dx64} in the "
+             f"first {LOOP_EARLY_STEPS} steps")
+    for a, b, what in ((mse_k, mse_p, "tracking MSE"),
+                       (sse_k, sse_p, "steady-state error")):
+        if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
+            fail(f"tank x2 {what}: kernel {a} vs plain {b}")
+
+    walls = {run_plain: [], run_kernel: []}
+    for fn in (run_plain, run_kernel, run_kernel, run_plain):
+        walls[fn].append(timed(fn)[1])
+    switch = run_kernel.pipe.config.switch_step
+    x2 = log_k.x[..., 1]
+    route = lambda runs: {"runs_s": runs,
+                          "ms_per_step": sum(runs) / 2 / TANK_STEPS * 1e3,
+                          "solves_per_s": BATCH * TANK_STEPS * 2 / sum(runs)}
+    line = {"slice": "tank bench loop, koopmanx_torch", "batch": BATCH,
+            "steps": TANK_STEPS, "switch_step": switch, "horizon": HORIZON,
+            "dtype": "float32",
+            "kernel_route": {**route(walls[run_kernel]), "cold_wall_s": cold_k},
+            "plain_route": {**route(walls[run_plain]), "cold_wall_s": cold_p},
+            "x2_tail_mean_pre_switch": float(x2[:, switch - 50:switch].mean()),
+            "x2_tail_mean_post_switch": float(x2[:, -50:].mean()),
+            "card": card}
+    print(json.dumps(line), flush=True)
+    return counts
+
+
+def phase_duffing_preset(device, flagship_quality):
+    """Phase 8: the shipped duffing preset (its .mat weights, normalized
+    lift, horizon 10) through the kernel route. Returns the launches."""
+    import torch
+    from koopmanx_torch.configs import duffing_nn_preset
+    from koopmanx_torch.engine.scenario import sample_scenarios
+    from koopmanx_torch.run import build_pipeline, resolve_weights_path, run_scenarios
+    from koopmanx_torch.systems.library import get_system
+
+    cfg = duffing_nn_preset()
+    cfg.steps = PRESET_STEPS
+    cfg.mpc.qp_backend = "pallas"
+    weights = resolve_weights_path(cfg.lift.weights_path, cfg.system)
+    artifact = os.path.join(ROOT, "artifacts", "duffing_kmae_encoder.mat")
+    if weights != artifact:
+        fail(f"the duffing preset resolves its weights to {weights}, not the "
+             f"in-repo {artifact}")
+    pipe = build_pipeline(cfg, device=device)
+    sc = sample_scenarios(get_system(cfg.system),
+                          torch.Generator().manual_seed(0), BATCH,
+                          param_scale=0.15, device=device)
+    zero_counts()
+    (carry, log), wall = timed(lambda: run_scenarios(pipe, sc))
+    counts = read_counts()
+    mse, sse = quality(log)
+    report = {"weights": os.path.relpath(weights, ROOT), "batch": BATCH,
+              "steps": PRESET_STEPS, "horizon": cfg.mpc.horizon,
+              "launches": counts, "wall_s_cold": wall,
+              "u_abs_max": float(log.u.abs().max()),
+              "mse_x1": mse, "sse_x1": sse,
+              "flagship_random_init_mse_x1": flagship_quality[0],
+              "flagship_random_init_sse_x1": flagship_quality[1]}
+    print("phase 8 duffing preset " + json.dumps(report), flush=True)
+    if counts["box_admm"] != PRESET_STEPS:
+        fail(f"the duffing preset launched {counts} in {PRESET_STEPS} steps")
+    check_loop(carry, log, "duffing preset", PRESET_STEPS)
+    return counts
 
 
 def main() -> int:
@@ -926,6 +1153,14 @@ def main() -> int:
         phase_convergence(device)
     for name, fused in fused_entries.items():
         fused["launches"] = counts[name]
+
+    # ---- 7. the tank path; 8. the shipped duffing preset ----
+    tank_counts = phase_tank(device, card)
+    preset_counts = phase_duffing_preset(device, (mse_k, sse_k))
+    entry["launches_by_path"] = {
+        "flagship (phase 3)": launches,
+        "tank (phase 7)": tank_counts["box_admm"],
+        "duffing preset (phase 8)": preset_counts["box_admm"]}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -1,4 +1,5 @@
-"""The configuration surface (a copy of ``koopmanx/configs.py:18-231``).
+"""The configuration surface (a copy of ``koopmanx/configs.py:18-299`` and
+the ``tank3``/``pendulum`` presets at :416-452 and :485-515).
 
 The port keeps its own copy of the dataclasses so that it imports nothing
 of ``koopmanx``. Field names and defaults are the JAX package's; fields of
@@ -25,7 +26,7 @@ class DataConfig:
 
 @dataclasses.dataclass
 class LiftConfig:
-    kind: str = "mlp"  # the port has 'mlp' only (ROADMAP queue A)
+    kind: str = "mlp"  # the port has 'mlp' and 'rbf' (ROADMAP queue A)
     nlift: int = 8
     hidden: int = 100
     rbf_type: str = "thinplate"
@@ -73,7 +74,7 @@ class MPCConfig:
 
 @dataclasses.dataclass
 class UpdateConfig:
-    mode: str = "rls"  # the port has 'rls_sqrt' and 'off'
+    mode: str = "rls"  # the port has 'rls_sqrt', 'windowed' and 'off'
     c_ab: float = 1e4
     c_c: float = 1e2
     warm_start_from_batch: bool = False
@@ -119,10 +120,13 @@ def duffing_nn_preset() -> RunConfig:
     """The duffing.py flagship loop: NN lift (Nlift=8), Np=Nc=10,
     u in [-2, 2], Q=100 on outputs, R=1e-4, r = 1, RLS init 1e4 I / 100 I,
     inert plant switch, block-8 KKT elimination, square-root RLS with a
-    1e-2 ridge trickle. The port has no ``.mat`` loader yet (ROADMAP queue
-    A, L2): building this preset as it is raises; set
-    ``lift.weights_path=None`` for a random-init lift, as
-    :func:`flagship_config` does."""
+    1e-2 ridge trickle.
+
+    The encoder weights are the reference's trained ``.mat``, named
+    relative to the reference tree (resolved against the repo root); where
+    it is absent, ``run.build_dictionary`` falls back to the in-repo
+    artifact ``artifacts/duffing_kmae_encoder.mat``, as the JAX package
+    does."""
     return RunConfig(
         system="duffing",
         steps=10000,
@@ -134,11 +138,104 @@ def duffing_nn_preset() -> RunConfig:
         ),
         lift=LiftConfig(
             kind="mlp", nlift=8, normalize=True,
-            # the reference's trained encoder, named relative to the
-            # reference tree; the port cannot load it yet (see above)
             weights_path="Revise_2/duffing_weights.mat",
         ),
     )
+
+
+def tank_preset() -> RunConfig:
+    """Tank_System.m: thinplate RBF Nlift=10 (:62-68), du formulation with
+    |du| <= 0.5 and -8 <= U0 <= 8 (:147-159), N=20, Q=10, R=0.001
+    (:117-119), switch at 100 (:194), 3000 steps, Cy=[0 1]; the windowed
+    estimator (W = 256) with refit cadence 8 past the 300-step warm-up."""
+    return RunConfig(
+        system="tank",
+        steps=3000,
+        switch_step=100,
+        mpc=MPCConfig(
+            horizon=20,
+            q_weight=10.0,
+            r_weight=1e-3,
+            delta_u=True,
+            du_min=-0.5,
+            du_max=0.5,
+            applied_min=-8.0,
+            applied_max=8.0,
+            cy_index=1,
+        ),
+        update=UpdateConfig(
+            mode="windowed", window=256, ridge=3e-2, c_ab=1e4, c_c=1e4,
+            c_pairing="same", window_refit_every=8,
+        ),
+        lift=LiftConfig(
+            kind="rbf", nlift=10, rbf_type="thinplate", rbf_centers="random",
+            normalize=True,
+        ),
+        data=DataConfig(u_range=(-5.0, 5.0), clamp_x0=True),
+    )
+
+
+def tank3_preset() -> RunConfig:
+    """Three-tank cascade: the tank recipe over a 3-dim state, tracking the
+    last tank's level (Cy selects x3), state-augmented thinplate RBF
+    (nlift 12 + 3)."""
+    return RunConfig(
+        system="tank3",
+        steps=3000,
+        switch_step=100,
+        mpc=MPCConfig(
+            horizon=20,
+            q_weight=10.0,
+            r_weight=1e-3,
+            delta_u=True,
+            du_min=-0.5,
+            du_max=0.5,
+            applied_min=-8.0,
+            applied_max=8.0,
+            cy_index=2,
+        ),
+        update=UpdateConfig(
+            mode="windowed", window=256, ridge=3e-2, c_ab=1e4, c_c=1e4,
+            c_pairing="same", window_refit_every=8,
+        ),
+        lift=LiftConfig(
+            kind="rbf", nlift=12, rbf_type="thinplate", rbf_centers="random",
+            normalize=True, state_augmented=True,
+        ),
+        data=DataConfig(u_range=(-5.0, 5.0), clamp_x0=True),
+    )
+
+
+def pendulum_preset() -> RunConfig:
+    """Damped torque-driven pendulum tracking x1 = 1 rad (steady torque
+    a*sin(1)/k, 3.37 nominal and 5.05 after the mass switch at step 1000,
+    inside the +-6 box): state-augmented thinplate RBF, the windowed
+    estimator with refit cadence 8."""
+    return RunConfig(
+        system="pendulum",
+        steps=2000,
+        switch_step=1000,
+        mpc=MPCConfig(
+            horizon=20, q_weight=10.0, r_weight=1e-3, u_min=-6.0, u_max=6.0,
+        ),
+        update=UpdateConfig(
+            mode="windowed", window=256, ridge=3e-2, c_pairing="same",
+            window_refit_every=8,
+        ),
+        lift=LiftConfig(
+            kind="rbf", nlift=12, rbf_type="thinplate", rbf_centers="random",
+            normalize=True, state_augmented=True,
+        ),
+        data=DataConfig(u_range=(-6.0, 6.0), x0_range=(-2.0, 2.0)),
+    )
+
+
+PRESETS = {
+    "duffing": duffing_nn_preset,
+    "tank": tank_preset,
+    "tank3": tank3_preset,
+    "pendulum": pendulum_preset,
+}
 
 
 def flagship_config(steps: int = 200, horizon: int = 20,
@@ -158,3 +255,20 @@ def flagship_config(steps: int = 200, horizon: int = 20,
     cfg.lift = LiftConfig(kind="mlp", nlift=8)
     return cfg
 
+
+
+def tank_bench_config(steps: int = 400, qp_backend: str = "pallas"
+                      ) -> RunConfig:
+    """``tank_preset`` with ``bench.py``'s overrides for a preset other
+    than Duffing (``bench.py:53-101``): f32, horizon 20, the plant switch
+    at ``steps // 2`` and 50x50 data with the preset's ``u_range`` and
+    ``clamp_x0``. The bench samples x0 in U[0, 2] for the tanks
+    (``bench.py:103-110``)."""
+    cfg = tank_preset()
+    cfg.steps = steps
+    cfg.dtype = "float32"
+    cfg.mpc.horizon = 20
+    cfg.mpc.qp_backend = qp_backend
+    cfg.switch_step = steps // 2
+    cfg.data = dataclasses.replace(cfg.data, n_step=50, n_traj=50)
+    return cfg

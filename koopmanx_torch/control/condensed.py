@@ -1,7 +1,7 @@
 """Condensed (dense) MPC QP construction (counterpart of
 ``koopmanx/control/condensed.py``: ``prediction_matrices`` :53-93 with the
-'dag' :223-246 and 'scan' :37-50 builds, ``weight_bar`` :115-123 and the
-box case of ``condensed_qp`` :126-170).
+'dag' :223-246 and 'scan' :37-50 builds, ``augment_delta_u`` :96-112,
+``weight_bar`` :115-123 and the box case of ``condensed_qp`` :126-170).
 
 All functions take a leading scenario axis (models (B, N, N) etc.).
 
@@ -85,6 +85,23 @@ def prediction_matrices(model: LinearModel, horizon: int,
     blocks = blocks * mask[:, :, None, None]
     f2 = blocks.transpose(-3, -2).reshape(batch + (horizon * py, horizon * m))
     return PredictionMatrices(f1=f1, f2=f2)
+
+
+def augment_delta_u(model: LinearModel) -> LinearModel:
+    """Incremental-input augmentation (``Tank_System.m:107-112``): the
+    state becomes [z; u] and the decision du,
+    A <- [A B; 0 I], B <- [B; I], C <- [C 0]."""
+    a, b, c = model
+    nz, m = b.shape[-2], b.shape[-1]
+    batch = a.shape[:-2]
+    kw = dict(dtype=a.dtype, device=a.device)
+    eye = torch.eye(m, **kw).expand(batch + (m, m))
+    a_aug = torch.cat([torch.cat([a, b], dim=-1),
+                       torch.cat([torch.zeros(batch + (m, nz), **kw), eye],
+                                 dim=-1)], dim=-2)
+    b_aug = torch.cat([b, eye], dim=-2)
+    c_aug = torch.cat([c, torch.zeros(c.shape[:-1] + (m,), **kw)], dim=-1)
+    return LinearModel(A=a_aug, B=b_aug, C=c_aug)
 
 
 def block_diag_repeat(block: Tensor, horizon: int) -> Tensor:

@@ -4,13 +4,22 @@ The arrays carry a pipeline across from any source; the tests take them
 from the JAX pipeline with ``jax.tree_util.tree_map(np.asarray, ...)``.
 This module imports no JAX. ``arrays`` is a dict:
 
-- ``"mlp"``: ``[(W, b), ...]``, W in the (out, in) convention;
+- the base lift, one of
+  - ``"mlp"``: ``[(W, b), ...]``, W in the (out, in) convention;
+  - ``"rbf"``: ``{"centers": (K, n), "kind": str}``;
+- ``"state_augmented"``, ``"zero_offset"`` (optional, default False): the
+  wrappers of ``lifts/base.py`` around the base lift, as ``LiftConfig``
+  names them (``zero_offset`` inside ``state_augmented`` when both);
 - ``"normalizer"``: ``(mu, sc)``, or absent/None for an un-normalized lift;
 - ``"model0"``: ``(A, B, C)``;
-- ``"rls0"``: ``{"K_A", "r_g", "barX", "r_q", "count"}`` (square-root RLS);
+- ``"rls0"``: ``{"K_A", "r_g", "barX", "r_q", "count"}`` (square-root RLS)
+  or ``{"zx", "u", "zy", "x", "idx"}`` (the windowed estimator's rings
+  and cursor);
 - ``"params"``: ``{"q_block", "r_block", "u_min", "u_max"}`` and optionally
-  ``"cy"`` and ``"ref_state"`` (the ``MPCParams`` arrays);
-- ``"x_init"`` (optional): the initial plant state.
+  ``"cy"``, ``"applied_min"``, ``"applied_max"`` and ``"ref_state"`` (the
+  ``MPCParams`` arrays);
+- ``"x_init"`` (optional): the initial plant state; the plant's default
+  (``System.x_init`` on every channel) where absent.
 """
 from __future__ import annotations
 
@@ -22,13 +31,23 @@ import torch
 from . import configs as C
 from .device import DeviceLike, resolve_device
 from .edmd.rls import SqrtRLSState
+from .edmd.windowed import WindowState
 from .engine.core import MPCParams
-from .lifts.base import Dictionary
-from .lifts.mlp import MLP, encoder_dictionary
-from .run import Pipeline, engine_config, ref_fn_for
 from .engine.loop import make_closed_loop
+from .lifts.base import (
+    Dictionary,
+    StateAugmented,
+    ZeroOffset,
+    state_augmented,
+    zero_offset,
+)
+from .lifts.mlp import MLP, encoder_dictionary
+from .lifts.rbf import RBF, rbf_dictionary
+from .run import Pipeline, engine_config, ref_fn_for
 from .systems.library import get_system
 from .types import LinearModel
+
+_INT = {"count", "idx"}
 
 
 def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
@@ -36,32 +55,41 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
                         dtype: torch.dtype = torch.float32) -> Pipeline:
     dev = resolve_device(device)
     t = lambda a: torch.tensor(np.array(a), dtype=dtype, device=dev)
+    leaf = lambda k, a: (torch.tensor(np.array(a), dtype=torch.int32,
+                                      device=dev) if k in _INT else t(a))
     system = get_system(cfg.system)
 
-    mlp = MLP.from_params([(t(w), t(b)) for w, b in arrays["mlp"]])
-    dictionary: Dictionary = encoder_dictionary(mlp, n=system.n)
+    if "rbf" in arrays:
+        rbf = arrays["rbf"]
+        dictionary = rbf_dictionary(t(rbf["centers"]), rbf["kind"])
+    else:
+        mlp = MLP.from_params([(t(w), t(b)) for w, b in arrays["mlp"]])
+        dictionary = encoder_dictionary(mlp, n=system.n)
+    if arrays.get("zero_offset"):
+        dictionary = zero_offset(dictionary)
+    if arrays.get("state_augmented"):
+        dictionary = state_augmented(dictionary)
     if arrays.get("normalizer") is not None:
         mu, sc = arrays["normalizer"]
-        dictionary = Dictionary(mlp, dictionary.nlift, system.n, t(mu), t(sc))
+        dictionary = Dictionary(dictionary.encoder, dictionary.nlift,
+                                system.n, t(mu), t(sc))
     dictionary = dictionary.to(dev)
 
     a, b, c = arrays["model0"]
     model0 = LinearModel(A=t(a), B=t(b), C=t(c))
     r = arrays["rls0"]
-    rls0 = SqrtRLSState(
-        K_A=t(r["K_A"]), r_g=t(r["r_g"]), barX=t(r["barX"]), r_q=t(r["r_q"]),
-        count=torch.tensor(np.array(r["count"]), dtype=torch.int32,
-                           device=dev),
-    )
+    state_cls = WindowState if "zx" in r else SqrtRLSState
+    rls0 = state_cls(**{k: leaf(k, r[k]) for k in state_cls._fields})
     p = arrays["params"]
+    opt = lambda k: None if p.get(k) is None else t(p[k])
     params = MPCParams(
         q_block=t(p["q_block"]), r_block=t(p["r_block"]),
-        u_min=t(p["u_min"]), u_max=t(p["u_max"]),
-        cy=None if p.get("cy") is None else t(p["cy"]),
-        ref_state=None if p.get("ref_state") is None else t(p["ref_state"]),
+        u_min=t(p["u_min"]), u_max=t(p["u_max"]), cy=opt("cy"),
+        applied_min=opt("applied_min"), applied_max=opt("applied_max"),
+        ref_state=opt("ref_state"),
     )
     x_init = arrays.get("x_init")
-    x_init = t(np.full((system.n,), -2.0) if x_init is None else x_init)
+    x_init = t((system.x_init,) * system.n if x_init is None else x_init)
 
     engine_cfg = engine_config(cfg)
     return Pipeline(
@@ -85,13 +113,23 @@ def pipeline_to_numpy(pipe: Pipeline) -> Dict[str, Any]:
     """The inverse of :func:`pipeline_from_numpy` (for round trips)."""
     n = lambda x: x.detach().cpu().numpy()
     d = pipe.dictionary
-    arrays = {
-        "mlp": [(n(w), n(b)) for w, b in d.encoder.params()],
-        "normalizer": (n(d.mu), n(d.sc)) if d.is_normalized else None,
+    arrays = {"normalizer": (n(d.mu), n(d.sc)) if d.is_normalized else None}
+    enc = d.encoder
+    if isinstance(enc, StateAugmented):
+        arrays["state_augmented"] = True
+        enc = enc.inner.encoder
+    if isinstance(enc, ZeroOffset):
+        arrays["zero_offset"] = True
+        enc = enc.inner.encoder
+    if isinstance(enc, RBF):
+        arrays["rbf"] = {"centers": n(enc.centers), "kind": enc.kind}
+    else:
+        arrays["mlp"] = [(n(w), n(b)) for w, b in enc.params()]
+    arrays.update({
         "model0": tuple(n(x) for x in pipe.model0),
         "rls0": {k: n(v) for k, v in pipe.rls0._asdict().items()},
         "params": {k: None if v is None else n(v)
                    for k, v in pipe.params._asdict().items()},
         "x_init": n(pipe.x_init),
-    }
+    })
     return arrays

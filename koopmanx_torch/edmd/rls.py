@@ -116,3 +116,20 @@ def sqrt_rls_model(state: SqrtRLSState, nlift: int) -> LinearModel:
     k_ext = _solve_gram(state.r_g, state.K_A.transpose(-1, -2)).transpose(-1, -2)
     c = _solve_gram(state.r_q, state.barX.transpose(-1, -2)).transpose(-1, -2)
     return LinearModel(A=k_ext[..., :, :nlift], B=k_ext[..., :, nlift:], C=c)
+
+
+def schulz_inverse(a: Tensor, iters: int = 24) -> Tensor:
+    """Newton-Schulz iterative inverse of (..., d, d) matrices
+    (``koopmanx/edmd/rls.py:376-406``): ``X <- X (2I - A X)`` for ``iters``
+    steps from the globally convergent seed ``A' / (||A||_1 ||A||_inf)``.
+    Truncated on purpose where the windowed estimator calls it: the
+    unconverged weakest directions are its spectral filter."""
+    d = a.shape[-1]
+    absa = a.abs()
+    norm1 = absa.sum(-2).amax(-1)
+    norminf = absa.sum(-1).amax(-1)
+    x = a.transpose(-1, -2) / (norm1 * norminf)[..., None, None]
+    eye2 = 2.0 * torch.eye(d, dtype=a.dtype, device=a.device)
+    for _ in range(iters):
+        x = x @ (eye2 - a @ x)
+    return x

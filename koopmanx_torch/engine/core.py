@@ -1,11 +1,16 @@
 """The per-step MPC body (counterpart of ``koopmanx/engine/core.py``).
 
-The slice ports the box path of ``make_control_solver`` (:383-729), the
-``rls_sqrt`` branch of ``make_estimator_update`` (:914-921) with the model
-guard (:988-1008) applied per scenario, and ``change_reset``
-(:1015-1047). Every function takes a leading scenario axis where the JAX
-package was ``vmap``-ed. Options of paths not ported yet raise
-``NotImplementedError`` naming their ROADMAP item (:func:`check_supported`).
+The port has the box path of ``make_control_solver`` (:383-729) with the
+du formulation (:423-425), the applied-input window folded into the first
+decision block's bounds (``applied_bounds='box'``, :519-584), the dither
+probe and the du accumulator (:686-704); the ``rls_sqrt`` and
+``windowed`` (refit from the ring buffers, :939-981) branches of
+``make_estimator_update`` with the model guard (:988-1008) applied per
+scenario; and ``change_reset`` (:1015-1047). Every function takes a
+leading scenario axis where the JAX package was ``vmap``-ed, and the step
+index is a Python int, so each ``lax.cond`` on it is a plain branch.
+Options of paths not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import torch
 from torch import Tensor
 
 from ..control.condensed import (
+    augment_delta_u,
     block_diag_repeat,
     condensed_qp,
     prediction_matrices,
@@ -23,6 +29,7 @@ from ..control.condensed import (
 )
 from ..control.qp import ADMMConfig, make_box_qp_solver
 from ..edmd.rls import sqrt_rls_model, sqrt_rls_update_ab, sqrt_rls_update_c
+from ..edmd.windowed import WindowState, window_model, window_update
 from ..lifts.base import Dictionary
 from ..types import LinearModel, QPSolution
 
@@ -33,9 +40,11 @@ class MPCParams(NamedTuple):
 
     q_block: Tensor  # (py, py) stage output weight
     r_block: Tensor  # (m, m) stage input weight
-    u_min: Tensor  # (m,) input bounds
+    u_min: Tensor  # (m,) decision bounds (du bounds in du mode)
     u_max: Tensor
     cy: Optional[Tensor] = None  # (py, p) output selector; None = track C z
+    applied_min: Optional[Tensor] = None  # (m,) du mode: bounds on u itself
+    applied_max: Optional[Tensor] = None
     ref_state: Optional[Tensor] = None  # (n,) state-space reference anchor
 
 
@@ -50,6 +59,7 @@ class EngineConfig:
     integrator: str = "rk4"
     controller: str = "mpc"
     delta_u: bool = False
+    applied_bounds: str = "box"  # 'box' folds the applied window into du_0's
     track_lifted: bool = False
     update: str = "rls"
     c_pairing: str = "next"  # 'next' (duffing.py:943) | 'same'
@@ -70,6 +80,14 @@ class EngineConfig:
     reset_mult: float = 0.0
     reset_factor: float = 1e-3
     residual_ema: float = 0.98
+    # 'windowed' update: Schulz steps of the refit (the spectral filter),
+    # the late (shorter) chain from window_filter_warmup on (0: none), the
+    # refit cadence past the warm-up, and the lanes of item 11
+    window_filter: int = 24
+    window_filter_late: int = 0
+    window_filter_warmup: int = 300
+    window_refit_every: int = 1
+    window_carry: str = "none"
     dither: float = 0.0
     # failure detection: f_clamp saturates prediction-matrix entries;
     # model_guard holds the last sane model when the new one is non-finite
@@ -95,16 +113,18 @@ def check_supported(cfg: EngineConfig) -> None:
     """Refuse the options whose paths the port has not reached yet."""
     todo = [
         (cfg.controller != "mpc", "controller='lqr'", "item 15"),
-        (cfg.delta_u, "delta_u", "item 10"),
+        (cfg.delta_u and cfg.applied_bounds != "box",
+         f"applied_bounds={cfg.applied_bounds!r}", "item 12"),
         (cfg.track_lifted, "track_lifted", "item 13"),
         (cfg.terminal_synthesis, "terminal_synthesis", "item 14"),
         (cfg.state_bounds, "state_bounds", "item 12"),
-        (cfg.update not in ("rls_sqrt", "off"), f"update={cfg.update!r}",
-         "items 10 and 13"),
+        (cfg.update not in ("rls_sqrt", "windowed", "off"),
+         f"update={cfg.update!r}", "item 13"),
+        (cfg.update == "windowed" and cfg.window_carry != "none",
+         f"window_carry={cfg.window_carry!r}", "item 11"),
         (cfg.qp_kkt_refine > 0, "qp_kkt_refine (carried KKT inverse)",
          "L3"),
         (cfg.qp_kkt_bf16, "qp_kkt_bf16", "L3"),
-        (cfg.dither > 0.0, "dither", "item 10"),
         (cfg.drift_norm != "fro", f"drift_norm={cfg.drift_norm!r}",
          "item 17"),
         (cfg.integrator != "rk4", f"integrator={cfg.integrator!r}", "L1"),
@@ -160,15 +180,24 @@ class ControlDecision(NamedTuple):
 def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
                         m: int):
     """Model -> applied input for a batch of scenarios: condensed QP build
-    (``duffing.py:756-800``), box ADMM, projection and warm shift."""
+    (``duffing.py:756-800``, ``Tank_System.m:118-158``), box ADMM,
+    projection, the du accumulator (``Tank_System.m:192``) and the warm
+    shift."""
     check_supported(cfg)
     horizon = cfg.horizon
     qp_cfg = cfg.qp_config
     box_solver = make_box_qp_solver(qp_cfg, backend=cfg.qp_backend)
 
     def control_solve(params: MPCParams, model: LinearModel, z: Tensor,
-                      warm_x: Tensor, warm_y: Any, step: int
+                      u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: int
                       ) -> ControlDecision:
+        # du augmentation of the current (online-updated) model,
+        # Tank_System.m:265-268
+        if cfg.delta_u:
+            model = augment_delta_u(model)
+            z_qp = torch.cat([z, u_prev], dim=-1)
+        else:
+            z_qp = z
         qbar = weight_bar(params.q_block, horizon)
         rbar = block_diag_repeat(params.r_block, horizon)
         pred = prediction_matrices(model, horizon, params.cy, cfg.markov)
@@ -189,49 +218,98 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
         # per-channel bounds (m,) tiled over the horizon
         lo, hi = (v.repeat((1,) * (v.dim() - 1) + (horizon,))
                   for v in (params.u_min, params.u_max))
-        qp = condensed_qp(pred, z, yr, qbar, rbar, lo, hi)
+        if cfg.delta_u and params.applied_min is not None:
+            # the applied-input window constrains du_0 alone: intersect it
+            # with du_0's box (applied_bounds='box'); the minimum guards an
+            # empty intersection. Each scenario gets its own first bounds.
+            lo0 = torch.maximum(params.u_min, params.applied_min - u_prev)
+            hi0 = torch.minimum(params.u_max, params.applied_max - u_prev)
+            lo0 = torch.minimum(lo0, hi0)
+            lo = torch.cat([lo0, lo[..., m:]], dim=-1)
+            hi = torch.cat([hi0, hi[..., m:]], dim=-1)
+        qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi)
         zeros_x = torch.zeros_like(qp.q)
         x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else zeros_x
         y0 = warm_y if cfg.qp_warm_start == "full" else zeros_x
         sol = box_solver(qp.P, qp.q, qp.l, qp.u, x0, y0)
-        # exact projection of the applied move; a non-finite solve applies 0
+        # exact projection of the first move; a non-finite solve applies 0
         first_move = torch.clamp(
             torch.nan_to_num(sol.x[..., :m], nan=0.0, posinf=0.0, neginf=0.0),
             params.u_min, params.u_max,
         )
+        if cfg.dither > 0.0:
+            # deterministic multi-sine probe for persistent excitation
+            t = torch.tensor(float(step), dtype=z.dtype, device=z.device)
+            probe = cfg.dither * (torch.sin(0.37 * t)
+                                  + 0.5 * torch.sin(1.13 * t + 1.0))
+            first_move = torch.clamp(first_move + probe, params.u_min,
+                                     params.u_max)
+        if cfg.delta_u:
+            u_applied = u_prev + first_move  # U0 += dU (Tank_System.m:192)
+            if params.applied_min is not None:
+                # exact actuator saturation of the accumulator
+                u_applied = torch.clamp(u_applied, params.applied_min,
+                                        params.applied_max)
+        else:
+            u_applied = first_move
         # warm start: shift by one move (last move repeated), sanitized
         warm_next = torch.nan_to_num(
             torch.cat([sol.x[..., m:], sol.x[..., -m:]], dim=-1),
             nan=0.0, posinf=0.0, neginf=0.0,
         )
-        return ControlDecision(u_applied=first_move, warm_x=warm_next,
+        return ControlDecision(u_applied=u_applied, warm_x=warm_next,
                                sol=sol, r_window=r_window)
 
     return control_solve
 
 
 def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
-    """One (z, u, z+, c_target) observation per scenario -> refreshed
-    estimator and guarded model. Returns ``(rls, new_model)``."""
+    """One (z, u, z+, c_target) observation per scenario at loop step
+    ``step`` -> refreshed estimator and guarded model. Returns
+    ``(rls, new_model)``."""
     check_supported(cfg)
+    nlift = dictionary.nlift
+
+    def windowed_refit(state: WindowState, step: int):
+        """The refit while ``step < window_filter_warmup``, then every
+        ``window_refit_every``-th step; the late chain from the warm-up on
+        when ``window_filter_late`` > 0. None where the model is held."""
+        warm = step < cfg.window_filter_warmup
+        if not (cfg.window_refit_every <= 1 or warm
+                or step % cfg.window_refit_every == 0):
+            return None
+        late = cfg.window_filter_late > 0 and not warm
+        iters = cfg.window_filter_late if late else cfg.window_filter
+        return window_model(state, nlift, ridge=max(cfg.rls_ridge, 1e-5),
+                            schulz_iters=iters)
 
     def estimator_update(rls, model: LinearModel, z: Tensor, u: Tensor,
-                         z_next: Tensor, c_target: Tensor):
+                         z_next: Tensor, c_target: Tensor, step: int):
         if cfg.update == "off":
             return rls, model
-        rls_new = sqrt_rls_update_ab(rls, z, u, z_next, lam=cfg.rls_lambda,
-                                     ridge=cfg.rls_ridge)
-        rls_new = sqrt_rls_update_c(rls_new, z, c_target, lam=cfg.rls_lambda,
-                                    ridge=cfg.rls_ridge)
-        new_model = sqrt_rls_model(rls_new, dictionary.nlift)
+        if cfg.update == "windowed":
+            # the ring absorbs every observation, refit or not
+            rls_new = window_update(rls, z, u, z_next, c_target)
+            new_model = windowed_refit(rls_new, step)
+        else:
+            rls_new = sqrt_rls_update_ab(rls, z, u, z_next,
+                                         lam=cfg.rls_lambda,
+                                         ridge=cfg.rls_ridge)
+            rls_new = sqrt_rls_update_c(rls_new, z, c_target,
+                                        lam=cfg.rls_lambda,
+                                        ridge=cfg.rls_ridge)
+            new_model = sqrt_rls_model(rls_new, nlift)
         if cfg.model_guard > 0.0:
-            finite = _tree_finite(new_model)
-            radius = _spectral_radius_estimate(new_model.A)
-            sane = finite & (radius < cfg.model_guard)
-            new_model = _select(sane, new_model, model)
-            # the estimator never absorbs non-finite carries
+            # a held model is its own guarded fallback: nothing to screen
+            if new_model is not None:
+                finite = _tree_finite(new_model)
+                radius = _spectral_radius_estimate(new_model.A)
+                sane = finite & (radius < cfg.model_guard)
+                new_model = _select(sane, new_model, model)
+            # the estimator never absorbs non-finite carries; out-of-place
+            # updates leave ``rls`` intact to fall back on
             rls_new = _select(_tree_finite(rls_new), rls_new, rls)
-        return rls_new, new_model
+        return rls_new, model if new_model is None else new_model
 
     return estimator_update
 

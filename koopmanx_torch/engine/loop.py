@@ -2,8 +2,9 @@
 
 One control step for every scenario at once:
 
-  encode -> condensed QP -> box ADMM -> apply input -> plant step ->
-  re-encode -> square-root RLS update of [A B] and C -> guard -> log
+  encode -> condensed QP -> box ADMM -> apply input (or accumulate du)
+  -> plant step -> re-encode -> online update of [A B] and C (square-root
+  RLS, or the window's ring and refit) -> guard -> log
 
 JAX ran one step per scenario under ``vmap`` inside a ``lax.scan``; here
 every tensor carries the scenario axis first and time is a Python loop.
@@ -32,9 +33,9 @@ __all__ = ["EngineConfig", "MPCParams", "LoopCarry", "StepLog",
 
 class LoopCarry(NamedTuple):
     x: Tensor  # (B, n) plant state
-    u_applied: Tensor  # (B, m) last applied input
+    u_applied: Tensor  # (B, m) last applied input (the du accumulator)
     model: LinearModel
-    rls: Any  # SqrtRLSState
+    rls: Any  # SqrtRLSState or WindowState
     warm_x: Tensor  # (B, N*m) QP primal warm start
     warm_y: Any  # (B, N*m) QP dual warm start under qp_warm_start='full'
     res_ema: Tensor  # (B,) running residual average (change detection)
@@ -71,7 +72,8 @@ def make_closed_loop(system: System, dictionary: Dictionary,
     def one_step(params, carry: LoopCarry, step: int, theta_sched):
         x, model = carry.x, carry.model
         z = dictionary(x)
-        dec = control_solve(params, model, z, carry.warm_x, carry.warm_y, step)
+        dec = control_solve(params, model, z, carry.u_applied, carry.warm_x,
+                            carry.warm_y, step)
         u_applied = dec.u_applied
 
         x_next = plant_step(x, u_applied, theta_sched(step))
@@ -80,7 +82,7 @@ def make_closed_loop(system: System, dictionary: Dictionary,
         # 'next' regresses C on x+ (duffing.py:943), 'same' on x
         c_target = x_next if cfg.c_pairing == "next" else x
         rls, new_model = estimator_update(carry.rls, model, z, u_applied,
-                                          z_next, c_target)
+                                          z_next, c_target, step)
 
         # change detection on the residual of the PRE-update model
         residual = torch.linalg.vector_norm(

@@ -1,6 +1,7 @@
 """Lifting dictionaries psi: R^n -> R^N (counterpart of
-``koopmanx/lifts/base.py``: the ``Dictionary`` wrapper, ``normalized`` and
-``fit_normalizer`` at :132-162).
+``koopmanx/lifts/base.py``: the ``Dictionary`` wrapper, ``state_augmented``
+and ``zero_offset`` at :100-129, ``normalized`` and ``fit_normalizer`` at
+:132-162).
 
 Where JAX held a pure apply function and a parameter pytree, the port
 holds an ``nn.Module`` encoder and the normalizer as buffers, so ``.to()``
@@ -37,6 +38,42 @@ class Dictionary(nn.Module):
         if self.mu is not None:
             z = (z - self.mu) / self.sc
         return z
+
+
+class StateAugmented(nn.Module):
+    """[x; inner(x)]."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x: Tensor) -> Tensor:
+        return torch.cat([x, self.inner(x)], dim=-1)
+
+
+class ZeroOffset(nn.Module):
+    """inner(x) - inner(0)."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x: Tensor) -> Tensor:
+        zero = torch.zeros(x.shape[-1:], dtype=x.dtype, device=x.device)
+        return self.inner(x) - self.inner(zero)
+
+
+def zero_offset(inner: Dictionary) -> Dictionary:
+    """psi(x) = inner(x) - inner(0)."""
+    return Dictionary(ZeroOffset(inner), nlift=inner.nlift, n=inner.n)
+
+
+def state_augmented(inner: Dictionary) -> Dictionary:
+    """psi(x) = [x; inner(x)]. JAX's ``state_augmented(d, zero_offset=True)``
+    (``Revise_2/Koopman_update.m:67``), [x; d(x)] - [0; d(0)], is
+    ``state_augmented(zero_offset(d))``."""
+    return Dictionary(StateAugmented(inner), nlift=inner.n + inner.nlift,
+                      n=inner.n)
 
 
 def normalized(inner: Dictionary, mean: Tensor, scale: Tensor) -> Dictionary:

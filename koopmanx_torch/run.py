@@ -1,10 +1,13 @@
 """RunConfig -> pipeline -> closed-loop results (counterpart of
-``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp), ``_mpc_params``
+``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp, with the ``.mat``
+weights and their fallback, and rbf with random centers), ``_mpc_params``
 :132-203, ``engine_config`` :206-251, ``_ref_fn`` :254-270 (constant) and
-``build_pipeline`` :282-412).
+``build_pipeline`` :282-412, with the windowed estimator's prefilled
+ring).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -14,12 +17,21 @@ from . import configs as C
 from .device import DeviceLike, resolve_device, torch_dtype
 from .edmd.batch import edmd_fit
 from .edmd.rls import sqrt_rls_init
+from .edmd.windowed import window_init, window_prefill
 from .engine import ref as refgen
 from .engine.core import check_supported
 from .engine.loop import EngineConfig, MPCParams, make_closed_loop, run_batch
-from .lifts.base import Dictionary, fit_normalizer, normalized
-from .lifts.mlp import encoder_dictionary, mlp_init
-from .systems.data import Snapshots, collect
+from .lifts.base import (
+    Dictionary,
+    fit_normalizer,
+    normalized,
+    state_augmented,
+    zero_offset,
+)
+from .lifts.io import load_mat_mlp
+from .lifts.mlp import MLP, encoder_dictionary, mlp_init
+from .lifts.rbf import rbf_dictionary
+from .systems.data import Snapshots, collect, uniform
 from .systems.library import get_system
 from .types import LinearModel
 
@@ -37,31 +49,62 @@ class Pipeline(NamedTuple):
     device: torch.device
 
 
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def resolve_weights_path(path: Optional[str], system: str) -> Optional[str]:
+    """The ``.mat`` file an MLP lift loads: ``path`` (a relative one
+    against the repo root) if it exists, else the in-repo artifact
+    ``artifacts/<system>_kmae_encoder.mat`` if that exists, else None (a
+    random-init lift), as ``koopmanx/run.py:65-75`` does."""
+    if not path:
+        return None
+    full = os.path.join(REPO_ROOT, path)  # an absolute path stays itself
+    if os.path.exists(full):
+        return full
+    alt = os.path.join(REPO_ROOT, "artifacts", f"{system}_kmae_encoder.mat")
+    return alt if os.path.exists(alt) else None
+
+
 def build_dictionary(cfg: C.RunConfig, data: Snapshots,
                      gen: torch.Generator) -> Dictionary:
-    """The MLP lift: random He init from ``gen``, optionally normalized on
-    the training states."""
+    """The lift: an MLP (its ``.mat`` weights, or a random He init from
+    ``gen``) or thinplate-family RBFs with centers ~ U[0, 1)^n from
+    ``gen``; then ``zero_offset``, ``state_augmented`` (the two together
+    are [x; g(x) - g(0)]); then ``normalized`` on the training states."""
     lc = cfg.lift
     system = get_system(cfg.system)
     dtype = torch_dtype(cfg.dtype)
-    if lc.kind != "mlp":
+    if lc.kind == "mlp":
+        path = resolve_weights_path(lc.weights_path, system.name)
+        if path is not None and not path.endswith(".mat"):
+            raise NotImplementedError(
+                f"weights {path!r}: the port reads .mat files only (the "
+                "JAX package's .pkl importer serves the reference's own "
+                "checkpoints)")
+        if path is not None:
+            d = encoder_dictionary(MLP.from_params(load_mat_mlp(path, dtype)),
+                                   n=system.n)
+        else:
+            sizes = (system.n,) + (lc.hidden,) * 3 + (lc.nlift,)
+            d = encoder_dictionary(mlp_init(gen, sizes, dtype=dtype),
+                                   n=system.n)
+    elif lc.kind == "rbf":
+        if lc.rbf_centers == "kmeans":
+            raise NotImplementedError(
+                "k-means RBF centers are not ported yet (ROADMAP queue A, "
+                "item 11)")
+        centers = uniform(gen, (lc.nlift, system.n), 0.0, 1.0, dtype)
+        d = rbf_dictionary(centers, lc.rbf_type)
+    else:
         raise NotImplementedError(
             f"lift kind {lc.kind!r} is not ported yet (ROADMAP queue A, "
-            "items 10-11)"
+            "item 11 and L7)"
         )
-    if lc.weights_path is not None:
-        raise NotImplementedError(
-            "loading encoder weights is not ported yet (ROADMAP queue A, "
-            "L2: a port-own copy of lifts/io.py's .mat loader); set "
-            "lift.weights_path=None for a random-init lift"
-        )
-    if lc.state_augmented or lc.zero_offset:
-        raise NotImplementedError(
-            "state-augmented / zero-offset lifts are not ported yet "
-            "(ROADMAP queue A, L2)"
-        )
-    sizes = (system.n,) + (lc.hidden,) * 3 + (lc.nlift,)
-    d = encoder_dictionary(mlp_init(gen, sizes, dtype=dtype), n=system.n)
+    if lc.zero_offset:
+        d = zero_offset(d)
+    if lc.state_augmented:
+        d = state_augmented(d)
     if lc.normalize:
         with torch.no_grad():
             mu, sc = fit_normalizer(d, data.x.to(dtype))
@@ -80,8 +123,9 @@ def _reference_state(cfg: C.RunConfig, n: int, dtype, device=None) -> Tensor:
 
 
 def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
-    """Output weight on the tracked outputs (both states for Duffing, or
-    one channel with ``cy_index``), input weight and box."""
+    """Output weight on the tracked outputs (every state, or one channel
+    with ``cy_index``), input weight and box; in du mode the box is du's
+    and ``applied_min``/``applied_max`` bound the applied input."""
     mc = cfg.mpc
     kw = dict(dtype=torch_dtype(cfg.dtype), device=device)
     if mc.cy_index is not None:
@@ -90,12 +134,20 @@ def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
         cy[0, mc.cy_index] = 1.0
     else:
         py, cy = system.n, None
+    full = lambda v: None if v is None else torch.full((system.m,), v, **kw)
+    if mc.delta_u:
+        box = (mc.du_min, mc.du_max)
+        applied = (mc.applied_min, mc.applied_max)
+    else:
+        box, applied = (mc.u_min, mc.u_max), (None, None)
     return MPCParams(
         q_block=mc.q_weight * torch.eye(py, **kw),
         r_block=mc.r_weight * torch.eye(system.m, **kw),
-        u_min=torch.full((system.m,), mc.u_min, **kw),
-        u_max=torch.full((system.m,), mc.u_max, **kw),
+        u_min=full(box[0]),
+        u_max=full(box[1]),
         cy=cy,
+        applied_min=full(applied[0]),
+        applied_max=full(applied[1]),
         ref_state=_reference_state(cfg, system.n, kw["dtype"], device),
     )
 
@@ -115,6 +167,7 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
         h=cfg.data.h,
         integrator=cfg.integrator,
         delta_u=mc.delta_u,
+        applied_bounds=mc.applied_bounds,
         track_lifted=mc.track_lifted,
         update=uc.mode,
         c_pairing=uc.c_pairing,
@@ -122,6 +175,11 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
         rls_ridge=uc.ridge,
         reset_mult=uc.reset_mult,
         reset_factor=uc.reset_factor,
+        window_filter=uc.window_filter,
+        window_filter_late=uc.window_filter_late,
+        window_filter_warmup=uc.window_filter_warmup,
+        window_refit_every=uc.window_refit_every,
+        window_carry=uc.window_carry,
         dither=uc.dither,
         switch_step=cfg.switch_step,
         markov=mc.markov,
@@ -152,6 +210,27 @@ def ref_fn_for(cfg: C.RunConfig, py: int, device=None):
     k = min(py, n)
     value[:k] = r_state[:k]
     return refgen.constant(value, cfg.mpc.horizon, py, dtype, device)
+
+
+def initial_estimator(cfg: C.RunConfig, dictionary: Dictionary,
+                      data: Snapshots):
+    """One scenario's estimator state: the square-root RLS init, or for
+    ``update.mode='windowed'`` a ring prefilled with the last W lifted
+    training snapshots (``koopmanx/run.py:350-363``)."""
+    system = get_system(cfg.system)
+    uc = cfg.update
+    dtype = torch_dtype(cfg.dtype)
+    if uc.mode == "windowed":
+        if uc.window_store != "float32":  # "float32": the run's own dtype
+            raise NotImplementedError(
+                f"window_store={uc.window_store!r} is not ported yet "
+                "(ROADMAP queue A, item 11)")
+        state = window_init(uc.window, dictionary.nlift, system.m, system.n,
+                            dtype)
+        return window_prefill(state, dictionary(data.x), data.u,
+                              dictionary(data.y), data.x)
+    return sqrt_rls_init(dictionary.nlift, system.m, system.n, uc.c_ab,
+                         uc.c_c, dtype)
 
 
 def build_pipeline(cfg: C.RunConfig, x_init=None,
@@ -186,11 +265,10 @@ def build_pipeline(cfg: C.RunConfig, x_init=None,
     dictionary = build_dictionary(cfg, data, gen)
     with torch.no_grad():
         model0 = edmd_fit(dictionary, data)
-    uc = cfg.update
-    rls0 = sqrt_rls_init(dictionary.nlift, system.m, system.n, uc.c_ab,
-                         uc.c_c, dtype)
+        rls0 = initial_estimator(cfg, dictionary, data)
     if x_init is None:
-        x_init = cfg.x0 if cfg.x0 is not None else (-2.0,) * system.n
+        x_init = cfg.x0 if cfg.x0 is not None else (
+            (system.x_init,) * system.n)
     x_init = torch.as_tensor(x_init, dtype=dtype)
 
     to = lambda tree: type(tree)(*(t.to(dev) for t in tree))

@@ -1,16 +1,18 @@
 """Plants with time-varying parameters (counterpart of
 ``koopmanx/systems/base.py``).
 
-A plant's vector field is ``f(t, x, u, theta)`` over a batch of states
-``x: (B, n)``, ``u: (B, m)`` and a parameter tuple whose leaves are
-scalars or ``(B,)`` tensors. Where JAX used ``vmap`` the batch axis is
-written out; the step index is a Python int, so the parameter switch is a
-plain branch.
+A plant is either a continuous vector field ``f(t, x, u, theta)``
+integrated by RK4, or an exact discrete map ``step_map(x, u, theta)``
+(``discrete=True``, the cascaded tanks), optionally followed by a state
+clamp. Both work over a batch of states ``x: (B, n)``, ``u: (B, m)`` and a
+parameter tuple whose leaves are scalars or ``(B,)`` tensors. Where JAX
+used ``vmap`` the batch axis is written out; the step index is a Python
+int, so the parameter switch is a plain branch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 from torch import Tensor
@@ -21,15 +23,21 @@ StepMap = Callable[[Tensor, Tensor, Any], Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class System:
-    """A continuous plant integrated by RK4 (the port has no discrete
-    plants yet)."""
+    """A plant: a continuous vector field ``f`` (integrated by RK4) or an
+    exact discrete map ``step_map`` (``discrete=True``); ``clamp`` is
+    applied to every next state (the tanks: x >= 0); ``x_init`` is the
+    default initial state on every channel."""
 
     name: str
     n: int
     m: int
-    f: VectorField
+    f: Optional[VectorField] = None
+    step_map: Optional[StepMap] = None
+    discrete: bool = False
     theta0: Any = None  # nominal parameters
     theta1: Any = None  # post-switch parameters
+    clamp: Optional[Callable[[Tensor], Tensor]] = None
+    x_init: float = -2.0  # duffing.py:650
 
 
 def make_switch_schedule(theta0: Any, theta1: Any, switch_step: int):
@@ -57,14 +65,24 @@ def rk4_step(f: VectorField, h: float) -> StepMap:
 
 
 def make_step(system: System, h: float, integrator: str = "rk4") -> StepMap:
-    """The one-step plant map ``x+ = F(x, u, theta)``
-    (``systems/base.py:112-129``)."""
-    if integrator != "rk4":
+    """The one-step plant map ``x+ = F(x, u, theta)``, clamped where the
+    system says (``systems/base.py:112-129``). A discrete plant ignores
+    ``h`` and ``integrator``."""
+    if system.discrete:
+        base = system.step_map
+    elif integrator == "rk4":
+        base = rk4_step(system.f, h)
+    elif integrator == "rk4_matlab":
         raise NotImplementedError(
-            f"integrator {integrator!r} is not ported yet (ROADMAP queue A, "
+            "integrator 'rk4_matlab' is not ported yet (ROADMAP queue A, "
             "L1: rk4_step_k1k4)"
         )
-    return rk4_step(system.f, h)
+    else:
+        raise ValueError(f"unknown integrator {integrator!r}")
+    if system.clamp is None:
+        return base
+    clamp = system.clamp
+    return lambda x, u, theta: clamp(base(x, u, theta))
 
 
 def as_params(theta: Any, dtype: torch.dtype, device: torch.device) -> Any:

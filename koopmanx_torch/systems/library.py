@@ -1,7 +1,9 @@
-"""Plant library (counterpart of ``koopmanx/systems/library.py:18-40``).
+"""Plant library (counterpart of ``koopmanx/systems/library.py``).
 
-The slice ports the Duffing oscillator; the other plants of the JAX
-registry raise ``NotImplementedError`` naming the ROADMAP item.
+The port has the Duffing oscillator, the cascaded tanks (two and three
+stages, exact discrete maps clamped at x >= 0) and the damped pendulum;
+the other plants of the JAX registry raise ``NotImplementedError`` naming
+the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -38,15 +40,108 @@ DUFFING = System(
     theta1=DuffingParams(d=-5.0, k1=2.0, k3=-0.5),
 )
 
-REGISTRY = {DUFFING.name: DUFFING}
+
+def _clamp_nonneg(x: Tensor) -> Tensor:
+    """x >= 0, NaN kept (``jnp.maximum(x, 0.0)``; Tank_System.m:40,45,211)."""
+    return torch.clamp(x, min=0.0)
+
+
+def _sqrt_level(x: Tensor) -> Tensor:
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+class TankParams(NamedTuple):
+    """Exact discrete cascaded-tank map (Tank_System.m:9-10):
+    x1+ = x1 - c1*sqrt(x1) + c2*u ; x2+ = x2 + c3*sqrt(x1) - c4*sqrt(x2)."""
+
+    c1: Tensor
+    c2: Tensor
+    c3: Tensor
+    c4: Tensor
+
+
+def _tank_step(x: Tensor, u: Tensor, th: TankParams) -> Tensor:
+    s1, s2 = _sqrt_level(x[..., 0]), _sqrt_level(x[..., 1])
+    return torch.stack([x[..., 0] - th.c1 * s1 + th.c2 * u[..., 0],
+                        x[..., 1] + th.c3 * s1 - th.c4 * s2], dim=-1)
+
+
+TANK = System(
+    name="tank",
+    n=2,
+    m=1,
+    step_map=_tank_step,
+    discrete=True,
+    theta0=TankParams(c1=0.5, c2=0.4, c3=0.2, c4=0.3),
+    theta1=TankParams(c1=0.53, c2=0.3, c3=0.1, c4=0.35),  # Tank_System.m:195-196
+    clamp=_clamp_nonneg,
+    x_init=0.0,  # Tank_System.m:125
+)
+
+
+class Tank3Params(NamedTuple):
+    """Three-tank cascade: the two-tank map extended by one stage,
+    x3+ = x3 + c5*sqrt(x2) - c6*sqrt(x3)."""
+
+    c1: Tensor
+    c2: Tensor
+    c3: Tensor
+    c4: Tensor
+    c5: Tensor
+    c6: Tensor
+
+
+def _tank3_step(x: Tensor, u: Tensor, th: Tank3Params) -> Tensor:
+    s1, s2, s3 = (_sqrt_level(x[..., i]) for i in range(3))
+    return torch.stack([x[..., 0] - th.c1 * s1 + th.c2 * u[..., 0],
+                        x[..., 1] + th.c3 * s1 - th.c4 * s2,
+                        x[..., 2] + th.c5 * s2 - th.c6 * s3], dim=-1)
+
+
+TANK3 = System(
+    name="tank3",
+    n=3,
+    m=1,
+    step_map=_tank3_step,
+    discrete=True,
+    theta0=Tank3Params(c1=0.5, c2=0.4, c3=0.2, c4=0.3, c5=0.2, c6=0.25),
+    theta1=Tank3Params(c1=0.53, c2=0.3, c3=0.1, c4=0.35, c5=0.22, c6=0.27),
+    clamp=_clamp_nonneg,
+    x_init=0.0,  # Tank_System.m:125
+)
+
+
+class PendulumParams(NamedTuple):
+    """x1' = x2 ; x2' = -a*sin(x1) - b*x2 + k*u (a = g/l, b the damping
+    rate, k the torque gain; the switch grows the payload mass 50 %)."""
+
+    a: Tensor
+    b: Tensor
+    k: Tensor
+
+
+def _pendulum_f(t, x: Tensor, u: Tensor, th: PendulumParams) -> Tensor:
+    del t
+    x1, x2 = x[..., 0], x[..., 1]
+    dx2 = -th.a * torch.sin(x1) - th.b * x2 + th.k * u[..., 0]
+    return torch.stack([x2, dx2], dim=-1)
+
+
+PENDULUM = System(
+    name="pendulum",
+    n=2,
+    m=1,
+    f=_pendulum_f,
+    theta0=PendulumParams(a=4.0, b=0.5, k=1.0),
+    theta1=PendulumParams(a=4.0, b=1.0 / 3.0, k=2.0 / 3.0),
+)
+
+REGISTRY = {s.name: s for s in (DUFFING, TANK, TANK3, PENDULUM)}
 
 # plants of the JAX registry that later slices port (ROADMAP queue A)
 _NOT_PORTED = {
     "vanderpol": "item 13 (VDP and the remaining estimators)",
-    "tank": "item 10 (windowed estimator, tank family)",
-    "tank3": "item 10 (windowed estimator, tank family)",
     "tank_mimo": "item 12 (tank_mimo)",
-    "pendulum": "item 10 (windowed estimator, tank family)",
     "toy1d": "item 14 (terminal synthesis, Revise_2 presets)",
     "approach3": "item 18 (training)",
 }

@@ -172,7 +172,7 @@ def test_model_guard_per_scenario_matches_jax():
     tupd = tcore.make_estimator_update(type("D", (), {"nlift": nlift})(), tcfg)
     ts0 = replicate(trls.sqrt_rls_init(nlift, m, n, 1e4, 1e2, dtype=F64), b)
     tr, tm = tupd(ts0, TModel(*(torch.tensor(v) for v in (a0, b0, c0))),
-                  *(torch.tensor(v) for v in (z, u, zn, x)))
+                  *(torch.tensor(v) for v in (z, u, zn, x)), 0)
     # two triangular solves against factors of condition ~1e2: 1e-10
     for t, j in zip(list(tm) + list(tr), list(jm) + list(jr)):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-10)
@@ -223,9 +223,16 @@ def test_build_pipeline_runs_the_flagship_loop_small_on_cpu():
 
 
 def test_unported_options_raise():
-    cfg = TC.flagship_config(steps=2, horizon=3)
-    cfg.mpc.delta_u = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build_pipeline(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="weights"):
-        t_build_pipeline(TC.duffing_nn_preset(), device="cpu")
+    """The options of later slices raise, naming their ROADMAP item: the
+    Woodbury lane, a compressed ring and k-means centers (item 11), the
+    explicit applied-window rows (item 12)."""
+    cases = [("update", "window_carry", "woodbury", "item 11"),
+             ("update", "window_store", "bfloat16", "item 11"),
+             ("lift", "rbf_centers", "kmeans", "item 11"),
+             ("mpc", "applied_bounds", "rows", "item 12")]
+    for part, field, value, item in cases:
+        cfg = TC.tank_bench_config(steps=2)
+        cfg.data = dataclasses.replace(cfg.data, n_step=5, n_traj=5)
+        setattr(getattr(cfg, part), field, value)
+        with pytest.raises(NotImplementedError, match=item):
+            t_build_pipeline(cfg, device="cpu")

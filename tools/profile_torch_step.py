@@ -1,16 +1,29 @@
 #!/usr/bin/env python3
 """Where the time of one koopmanx_torch control step goes, on one GPU.
 
-Runs the flagship batched Duffing loop (8192 scenarios, f32, horizon 20,
-the kernel route by default) for a few warm-up steps, then profiles
-``--steps`` more with ``torch.profiler`` (CPU and CUDA activities). Prints
-the top device kernels by time, then one JSON line: wall ms per step,
-device-busy ms per step (the union of the kernels' intervals), the
-device's idle share, kernel launches per step, and the box-ADMM kernel's
-share of busy time and device time per launch. ``--out`` also writes the
-whole kernel table to a file.
+Runs a batched loop (8192 scenarios, f32, horizon 20, the kernel route by
+default) for a few warm-up steps, then profiles ``--steps`` more with
+``torch.profiler`` (CPU and CUDA activities). ``--config flagship`` is the
+flagship Duffing loop (``configs.flagship_config``); ``--config tank`` the
+tank bench loop (``configs.tank_bench_config``, x0 ~ U[0, 2]^2), profiled
+in both of its regimes: ``warm-up`` (the first ``window_filter_warmup``
+steps, which refit the window every step) and ``cadence`` (the steps past
+it, which refit one step in ``window_refit_every`` with the late chain;
+profiled from step 0 with the warm-up set to 0, over ``--steps`` rounded up
+to whole cadence cycles). For each regime it prints the top device kernels
+by time, then one JSON line: wall ms per step, device-busy ms per step (the
+union of the kernels' intervals), the device's idle share, kernel launches
+per step, the box-ADMM kernel's share of busy time and device time per
+launch, and the device time under each of a few named stages
+(``torch.profiler.record_function`` around the engine's functions: for the
+tank, the Newton-Schulz chains, the refit, the ring write and the
+finiteness checks). For the tank a last JSON line weights the two regimes
+by the steps each takes in the shipped preset's run (``tank_preset``) and
+in ``chip_smoke.py``'s phase 7. ``--out`` also writes the whole kernel
+tables to a file.
 
-    python3 tools/profile_torch_step.py [--steps 10] [--batch 8192] [--out FILE]
+    python3 tools/profile_torch_step.py [--config flagship|tank] [--steps 10]
+        [--batch 8192] [--out FILE]
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--backend", default="pallas")
+    ap.add_argument("--config", default="flagship", choices=("flagship", "tank"))
     ap.add_argument("--out", default=None, help="write the kernel table here")
     args = ap.parse_args()
 
@@ -39,71 +53,163 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     sys.path.insert(0, ROOT)
-    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.configs import (
+        flagship_config,
+        tank_bench_config,
+        tank_preset,
+    )
+    from koopmanx_torch.control import qp
+    from koopmanx_torch.engine import core
+    from koopmanx_torch.edmd import windowed
     from koopmanx_torch.engine.scenario import sample_scenarios
     from koopmanx_torch.run import build_pipeline, run_scenarios
     from koopmanx_torch.systems.library import get_system
 
-    def loop(steps):
-        cfg = flagship_config(steps=steps, horizon=20, qp_backend=args.backend)
+    stages = {}
+    for module, name in ((windowed, "schulz_inverse"), (core, "window_model"),
+                         (core, "window_update"), (core, "_tree_finite"),
+                         (core, "sqrt_rls_update_ab"),
+                         (core, "sqrt_rls_update_c"),
+                         (core, "sqrt_rls_model"), (qp, "spd_inverse")):
+        stages[name] = 0.0
+
+        def ranged(*a, _fn=getattr(module, name), _name=name, **kw):
+            with torch.profiler.record_function(_name):
+                return _fn(*a, **kw)
+
+        setattr(module, name, ranged)
+
+    def loop(steps, warmup_end=None):
+        if args.config == "tank":
+            cfg = tank_bench_config(steps=steps, qp_backend=args.backend)
+            if warmup_end is not None:
+                cfg.update.window_filter_warmup = warmup_end
+            x0_range = (0.0, 2.0)
+        else:
+            cfg = flagship_config(steps=steps, horizon=20,
+                                  qp_backend=args.backend)
+            x0_range = (-2.0, 2.0)
         pipe = build_pipeline(cfg)  # CUDA, or raises
-        sc = sample_scenarios(get_system("duffing"),
+        sc = sample_scenarios(get_system(cfg.system),
                               torch.Generator().manual_seed(0), args.batch,
-                              param_scale=0.15)
+                              x0_range=x0_range, param_scale=0.15)
         return lambda: run_scenarios(pipe, sc)
 
-    loop(args.warmup)()
-    run = loop(args.steps)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def profile_regime(steps, warmup_end=None):
+        loop(args.warmup, warmup_end)()
+        run = loop(steps, warmup_end)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall_plain = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
 
-    # device-side events only (kernels, copies, fills): the aten ops that
-    # launched them report the same time again
-    spans = [(e.time_range.start, e.time_range.end, e.name)
-             for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not e.name.startswith("aten::")]
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for start, end, name in spans:
-        by_name[name][0] += end - start
-        by_name[name][1] += 1
-    busy_us, reach = 0.0, float("-inf")
-    for start, end, _ in sorted(spans):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    lines = [f"{'device us':>12} {'count':>8}  name"]
-    lines += [f"{us:12.1f} {n:8d}  {name[:100]}" for name, (us, n) in rows]
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
-    print("\n".join(lines[:26]))
-    admm_us = sum(us for name, (us, _) in rows if "box_admm" in name)
-    admm_n = sum(n for name, (_, n) in rows if "box_admm" in name)
+        # device-side events only (kernels, copies, fills): the aten ops
+        # that launched them report the same time again
+        spans = [(e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and not e.name.startswith("aten::") and e.name not in stages]
+        by_name = collections.defaultdict(lambda: [0.0, 0])
+        for start, end, name in spans:
+            by_name[name][0] += end - start
+            by_name[name][1] += 1
+        busy_us, reach = 0.0, float("-inf")
+        for start, end, _ in sorted(spans):
+            if end > reach:
+                busy_us += end - max(start, reach)
+                reach = end
+        rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        lines = [f"{'device us':>12} {'count':>8}  name"]
+        lines += [f"{us:12.1f} {n:8d}  {name[:100]}" for name, (us, n) in rows]
+        # the host-side ranges, each with the device time of the kernels
+        # that the operations inside it launched
+        stage_us = dict.fromkeys(stages, 0.0)
+        for e in prof.events():
+            if e.name in stages and e.device_type == DeviceType.CPU:
+                total = getattr(e, "device_time_total", None)
+                stage_us[e.name] += e.cuda_time_total if total is None else total
+        admm_us = sum(us for name, (us, _) in rows if "box_admm" in name)
+        admm_n = sum(n for name, (_, n) in rows if "box_admm" in name)
+        return lines, {
+            "steps": steps,
+            "wall_ms_per_step": wall_plain / steps * 1e3,
+            "wall_ms_per_step_profiled": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy_us / steps / 1e3,
+            # busy time from the profiled run against the unprofiled wall
+            "device_idle_share": 1.0 - busy_us / (wall_plain * 1e6),
+            "device_ops_per_step": len(spans) / steps,
+            "box_admm_share_of_busy": admm_us / busy_us if busy_us else None,
+            "box_admm_us_per_launch": admm_us / admm_n if admm_n else None,
+            # device time under each named stage (nested: window_model
+            # holds the Schulz chains), per step and as a share of busy time
+            "stage_device_ms_per_step": {k: us / steps / 1e3
+                                         for k, us in stage_us.items() if us},
+            "stage_share_of_busy": {k: us / busy_us for k, us in
+                                    stage_us.items() if us and busy_us},
+        }
+
+    if args.config == "tank":
+        every = tank_bench_config().update.window_refit_every
+        regimes = {"warm-up": (args.steps, None),
+                   "cadence": (-(-args.steps // every) * every, 0)}
+    else:
+        regimes = {"all": (args.steps, None)}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    print(json.dumps({
-        "backend": args.backend, "batch": args.batch, "steps": args.steps,
-        "wall_ms_per_step": wall_plain / args.steps * 1e3,
-        "wall_ms_per_step_profiled": wall / args.steps * 1e3,
-        "device_busy_ms_per_step": busy_us / args.steps / 1e3,
-        # busy time from the profiled run against the unprofiled wall
-        "device_idle_share": 1.0 - busy_us / (wall_plain * 1e6),
-        "device_ops_per_step": len(spans) / args.steps,
-        "box_admm_share_of_busy": admm_us / busy_us if busy_us else None,
-        "box_admm_us_per_launch": admm_us / admm_n if admm_n else None,
-        "card": card,
-    }))
+    results, tables = {}, []
+    for regime, (steps, warmup_end) in regimes.items():
+        lines, result = profile_regime(steps, warmup_end)
+        results[regime] = result
+        tables += [f"# {args.config}, {regime}"] + lines
+        print("\n".join(lines[:26]))
+        print(json.dumps({"config": args.config, "regime": regime,
+                          "backend": args.backend, "batch": args.batch,
+                          **result, "card": card}), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(tables) + "\n")
+    if args.config == "tank":
+        # each run's steps split between the regimes: the shipped preset
+        # (3000 steps, 300 of warm-up) and phase 7 (400 steps)
+        mixes = {}
+        for name, cfg in (("tank_preset", tank_preset()),
+                          ("chip_smoke phase 7", tank_bench_config())):
+            warm = min(cfg.update.window_filter_warmup, cfg.steps) / cfg.steps
+            share = {"warm-up": warm, "cadence": 1.0 - warm}
+            mix = {k: sum(share[r] * results[r][k] for r in results)
+                   for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                             "device_ops_per_step")}
+            busy = {r: results[r]["device_busy_ms_per_step"] * share[r]
+                    for r in results}
+            stage = lambda k: sum(
+                share[r] * results[r]["stage_device_ms_per_step"].get(k, 0.0)
+                for r in results)
+            admm = sum(share[r] * results[r]["device_busy_ms_per_step"]
+                       * (results[r]["box_admm_share_of_busy"] or 0.0)
+                       for r in results)
+            mixes[name] = {
+                "steps": cfg.steps, "warmup_share": warm, **mix,
+                "device_idle_share": 1.0 - mix["device_busy_ms_per_step"]
+                / mix["wall_ms_per_step"],
+                "busy_share_by_regime": {
+                    r: v / mix["device_busy_ms_per_step"]
+                    for r, v in busy.items()},
+                "schulz_share_of_busy": stage("schulz_inverse")
+                / mix["device_busy_ms_per_step"],
+                "window_model_share_of_busy": stage("window_model")
+                / mix["device_busy_ms_per_step"],
+                "box_admm_share_of_busy": admm
+                / mix["device_busy_ms_per_step"],
+            }
+        print(json.dumps({"config": "tank", "mix": mixes, "card": card}))
     return 0
 
 
