@@ -85,10 +85,30 @@ Phases, each of which fails the run on error:
    ``artifacts/duffing_kmae_encoder.mat``, normalized lift, horizon 10) at
    8192 scenarios for 200 steps through the kernel route: 200 launches,
    finite, |u| <= 2; its quality printed beside the random-init
-   flagship's.
+   flagship's;
+9. drive the large-lift path, the JAX package's ``BENCH_PRESET=
+   duffing_rbf128`` workload (``koopmanx_torch.configs.
+   rbf128_bench_config``: 8192 scenarios with x0 ~ U[-2, 2]^2,
+   param_scale 0.15, 126 k-means thinplate-eps RBF centers plus the state,
+   normalized, nlift 128, N = 20, the Woodbury lane over a 256-step window
+   with polish 2, f32; 200 steps, the switch at step 100), through the
+   kernel route and the plain route, counts zeroed before each run and
+   read after: 200 ``box_admm`` launches, then 0. Gates: everything
+   finite (the carried statistics included), |u| <= 2, kernel vs plain
+   route over the first 16 steps in float64, and the float32 batch-mean
+   control quality of x1. Prints the x1 tail means before and after the
+   switch, both routes' warm wall time in turns, and each run's peak
+   device memory;
+10. drive the ``duffing_rff`` preset (32 random Fourier features plus the
+   state, nlift 34, N = 10, the Woodbury lane) at 8192 scenarios for 200
+   steps, and the phase 9 loop with its ring stored in bfloat16, both
+   through the kernel route with their launches counted: 200 each,
+   finite, |u| <= 2; their quality and peak memory printed beside phase
+   9's.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
-slice timing JSON line, a tank timing JSON line, the card line
+slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
+line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -151,6 +171,9 @@ CONVERGED = {"horizon": 10, "iters": 800, "schulz_iters": 24, "tol": 5e-3}
 TANK_STEPS, DU_MAX, APPLIED_MAX, BOUND_SLACK = 400, 0.5, 8.0, 1e-6
 # phase 8: the shipped duffing preset
 PRESET_STEPS = 200
+# phases 9 and 10: the rbf128 bench and the duffing_rff preset, 200 steps
+# (the bench's own; the presets run 3000 and 10000), the switch at 100
+RBF128_STEPS = 200
 
 
 def fail(msg: str) -> None:
@@ -900,7 +923,7 @@ def check_tank_loop(carry, log, name: str, steps: int = TANK_STEPS):
     import torch
 
     leaves = [log.x, log.u, carry.x, carry.u_applied, carry.warm_x,
-              *carry.model, *carry.rls]
+              *carry.model, *(t for t in carry.rls if t is not None)]
     if not all(bool(torch.isfinite(t).all()) for t in leaves):
         fail(f"tank {name} loop: non-finite logs or final carry")
     u = torch.cat([torch.zeros_like(log.u[:, :1]), log.u], dim=1)
@@ -1018,6 +1041,169 @@ def phase_duffing_preset(device, flagship_quality):
         fail(f"the duffing preset launched {counts} in {PRESET_STEPS} steps")
     check_loop(carry, log, "duffing preset", PRESET_STEPS)
     return counts
+
+
+def woodbury_loop(cfg, device, dtype: str = "float32"):
+    """A Woodbury-lane Duffing loop (``cfg``) as a thunk through the user
+    entry points, over the bench's scenarios (x0 ~ U[-2, 2]^2,
+    param_scale 0.15)."""
+    import torch
+    from koopmanx_torch.engine.scenario import sample_scenarios
+    from koopmanx_torch.run import build_pipeline, run_scenarios
+    from koopmanx_torch.systems.library import get_system
+
+    cfg.dtype = dtype
+    pipe = build_pipeline(cfg, device=device)
+    sc = sample_scenarios(get_system(cfg.system),
+                          torch.Generator().manual_seed(0), BATCH,
+                          param_scale=0.15, dtype=getattr(torch, dtype),
+                          device=device)
+
+    def run():
+        return run_scenarios(pipe, sc)
+
+    run.pipe = pipe
+    return run
+
+
+def rbf128_loop(backend: str, device, steps: int = RBF128_STEPS,
+                dtype: str = "float32", store: str = "float32"):
+    from koopmanx_torch.configs import rbf128_bench_config
+
+    cfg = rbf128_bench_config(steps=steps, qp_backend=backend)
+    cfg.update.window_store = store
+    return woodbury_loop(cfg, device, dtype)
+
+
+def check_woodbury_loop(carry, log, name: str, steps: int = RBF128_STEPS):
+    """Finite logs and final carry (model, rings and carried statistics
+    included), |u| <= 2, the shapes."""
+    import torch
+
+    leaves = [log.x, log.u, carry.x, carry.u_applied, carry.warm_x,
+              *carry.model, *(t for t in carry.rls if t is not None)]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        fail(f"{name} loop: non-finite logs or final carry")
+    if carry.rls.g is None:
+        fail(f"{name} loop: no carried statistics")
+    check_loop(carry, log, name, steps)
+
+
+def run_with_memory(fn):
+    """``(fn(), seconds, peak device bytes)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = timed(fn)
+    return out, wall, torch.cuda.max_memory_allocated()
+
+
+def phase_rbf128(device, card: str):
+    """Phase 9: the rbf128 bench loop through both routes, with its gates.
+    Returns the kernel route's launch counts and a report for phase 10."""
+    from koopmanx_torch.ops.box_admm import box_admm
+
+    run_kernel = rbf128_loop("pallas", device)
+    zero_counts()
+    (carry_k, log_k), cold_k, mem_k = run_with_memory(run_kernel)
+    counts = read_counts()
+    print(f"phase 9 rbf128 path (pallas): {cold_k:.2f} s cold, launches "
+          f"{counts}, peak {mem_k / 2**30:.2f} GiB", flush=True)
+    if counts != {"box_admm": RBF128_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+        fail(f"the rbf128 path launched {counts} in {RBF128_STEPS} steps")
+    check_woodbury_loop(carry_k, log_k, "rbf128 pallas")
+
+    run_plain = rbf128_loop("xla", device)
+    box_admm.launches = 0
+    (carry_p, log_p), cold_p, mem_p = run_with_memory(run_plain)
+    if box_admm.launches != 0:
+        fail("the rbf128 plain route launched the kernel")
+    check_woodbury_loop(carry_p, log_p, "rbf128 xla")
+    early, mem64 = {}, {}
+    for backend in ("pallas", "xla"):
+        (carry, log), _, mem64[backend] = run_with_memory(rbf128_loop(
+            backend, device, LOOP_EARLY_STEPS, "float64"))
+        check_woodbury_loop(carry, log, f"rbf128 {backend} float64",
+                            LOOP_EARLY_STEPS)
+        early[backend] = log.x
+    dx64 = float((early["pallas"] - early["xla"]).abs().max())
+    (mse_k, sse_k), (mse_p, sse_p) = quality(log_k), quality(log_p)
+    gate = {"batch": BATCH, "nlift": run_kernel.pipe.dictionary.nlift,
+            "dx_first16_f64": dx64, "dx_first16_f64_tol": LOOP_EARLY_TOL,
+            "dx_first16_f32": float((log_k.x[:, :LOOP_EARLY_STEPS]
+                                     - log_p.x[:, :LOOP_EARLY_STEPS])
+                                    .abs().max()),
+            "mse_kernel": mse_k, "mse_plain": mse_p,
+            "sse_kernel": sse_k, "sse_plain": sse_p,
+            "quality_rtol": QUALITY_RTOL,
+            "u_abs_max": float(log_k.u.abs().max()),
+            "peak_gib": {"float32 kernel": mem_k / 2**30,
+                         "float32 plain": mem_p / 2**30,
+                         "float64 kernel, 16 steps": mem64["pallas"] / 2**30,
+                         "float64 plain, 16 steps": mem64["xla"] / 2**30}}
+    print("phase 9 gate " + json.dumps(gate), flush=True)
+    if not dx64 <= LOOP_EARLY_TOL:
+        fail(f"float64 rbf128 kernel and plain loops differ by {dx64} in the "
+             f"first {LOOP_EARLY_STEPS} steps")
+    for a, b, what in ((mse_k, mse_p, "tracking MSE"),
+                       (sse_k, sse_p, "steady-state error")):
+        if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
+            fail(f"rbf128 x1 {what}: kernel {a} vs plain {b}")
+
+    walls = {run_plain: [], run_kernel: []}
+    for fn in (run_plain, run_kernel, run_kernel, run_plain):
+        walls[fn].append(timed(fn)[1])
+    switch = run_kernel.pipe.config.switch_step
+    x1 = log_k.x[..., 0]
+    route = lambda runs: {"runs_s": runs,
+                          "ms_per_step": sum(runs) / 2 / RBF128_STEPS * 1e3,
+                          "solves_per_s": BATCH * RBF128_STEPS * 2 / sum(runs)}
+    line = {"slice": "rbf128 bench loop, koopmanx_torch", "batch": BATCH,
+            "steps": RBF128_STEPS, "switch_step": switch, "horizon": HORIZON,
+            "nlift": run_kernel.pipe.dictionary.nlift, "dtype": "float32",
+            "kernel_route": {**route(walls[run_kernel]), "cold_wall_s": cold_k,
+                             "peak_gib": mem_k / 2**30},
+            "plain_route": {**route(walls[run_plain]), "cold_wall_s": cold_p,
+                            "peak_gib": mem_p / 2**30},
+            "x1_tail_mean_pre_switch": float(x1[:, switch - 50:switch].mean()),
+            "x1_tail_mean_post_switch": float(x1[:, -50:].mean()),
+            "card": card}
+    print(json.dumps(line), flush=True)
+    return counts, {"mse_x1": mse_k, "sse_x1": sse_k,
+                    "peak_gib": mem_k / 2**30}
+
+
+def phase_rff_and_bf16(device, rbf128_report):
+    """Phase 10: the duffing_rff preset and the rbf128 bench with a bf16
+    ring, kernel route. Returns both runs' launch counts."""
+    from koopmanx_torch.configs import duffing_rff_preset
+
+    cfg = duffing_rff_preset()
+    cfg.steps = RBF128_STEPS
+    cfg.mpc.qp_backend = "pallas"
+    runs = {"duffing_rff": woodbury_loop(cfg, device),
+            "rbf128 bf16 ring": rbf128_loop("pallas", device,
+                                            store="bfloat16")}
+    counts, report = {}, {"rbf128 f32 ring (phase 9)": rbf128_report}
+    for name, run in runs.items():
+        zero_counts()
+        (carry, log), wall, mem = run_with_memory(run)
+        counts[name] = read_counts()
+        mse, sse = quality(log)
+        report[name] = {
+            "nlift": run.pipe.dictionary.nlift,
+            "horizon": run.pipe.config.mpc.horizon,
+            "ring_dtype": str(carry.rls.zx.dtype).replace("torch.", ""),
+            "launches": counts[name], "wall_s_cold": wall,
+            "peak_gib": mem / 2**30, "u_abs_max": float(log.u.abs().max()),
+            "mse_x1": mse, "sse_x1": sse}
+        if counts[name]["box_admm"] != RBF128_STEPS:
+            fail(f"{name} launched {counts[name]} in {RBF128_STEPS} steps")
+        check_woodbury_loop(carry, log, name)
+    print("phase 10 " + json.dumps({"batch": BATCH, "steps": RBF128_STEPS,
+                                    **report}), flush=True)
+    return counts["duffing_rff"], counts["rbf128 bf16 ring"]
 
 
 def main() -> int:
@@ -1157,10 +1343,19 @@ def main() -> int:
     # ---- 7. the tank path; 8. the shipped duffing preset ----
     tank_counts = phase_tank(device, card)
     preset_counts = phase_duffing_preset(device, (mse_k, sse_k))
+
+    # ---- 9. the large-lift path; 10. duffing_rff and the bf16 ring ----
+    t9 = time.perf_counter()
+    rbf_counts, rbf_report = phase_rbf128(device, card)
+    rff_counts, bf16_counts = phase_rff_and_bf16(device, rbf_report)
+    print(f"phases 9-10: {time.perf_counter() - t9:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
         "tank (phase 7)": tank_counts["box_admm"],
-        "duffing preset (phase 8)": preset_counts["box_admm"]}
+        "duffing preset (phase 8)": preset_counts["box_admm"],
+        "rbf128 bench (phase 9)": rbf_counts["box_admm"],
+        "duffing_rff preset (phase 10)": rff_counts["box_admm"],
+        "rbf128 bench, bf16 ring (phase 10)": bf16_counts["box_admm"]}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
-"""The configuration surface (a copy of ``koopmanx/configs.py:18-299`` and
-the ``tank3``/``pendulum`` presets at :416-452 and :485-515).
+"""The configuration surface (a copy of ``koopmanx/configs.py:18-299``, the
+``duffing_rbf``/``duffing_rff`` presets at :365-413, ``tank3`` at
+:416-452, ``pendulum`` at :485-515 and ``duffing_rbf128`` at :517-547).
 
 The port keeps its own copy of the dataclasses so that it imports nothing
 of ``koopmanx``. Field names and defaults are the JAX package's; fields of
@@ -26,7 +27,7 @@ class DataConfig:
 
 @dataclasses.dataclass
 class LiftConfig:
-    kind: str = "mlp"  # the port has 'mlp' and 'rbf' (ROADMAP queue A)
+    kind: str = "mlp"  # mlp | rbf | fourier (hermite, monomial: ROADMAP L7)
     nlift: int = 8
     hidden: int = 100
     rbf_type: str = "thinplate"
@@ -230,8 +231,60 @@ def pendulum_preset() -> RunConfig:
     )
 
 
+def duffing_rbf_preset() -> RunConfig:
+    """duffing_RBF.py: thinplate-eps RBF lift with k-means centers (:20-23,
+    :44-46), state-augmented and normalized, the storage-method online
+    update (:404-438; not ported yet, ROADMAP queue A, item 13), otherwise
+    the duffing.py MPC scenario. The base of the two presets below."""
+    return RunConfig(
+        system="duffing",
+        steps=10000,
+        switch_step=10**9,
+        mpc=MPCConfig(horizon=10, q_weight=100.0, r_weight=1e-4, u_min=-2,
+                      u_max=2),
+        update=UpdateConfig(mode="storage", c_pairing="next"),
+        lift=LiftConfig(
+            kind="rbf", nlift=8, rbf_type="thinplate_eps",
+            rbf_centers="kmeans", normalize=True, state_augmented=True,
+        ),
+    )
+
+
+def duffing_rff_preset() -> RunConfig:
+    """Random-Fourier-feature lift (32 features, bandwidth 2.0 data stds,
+    state-augmented and normalized: nlift 34) on the duffing scenario,
+    with the Woodbury lane over a 256-step window (ridge 0.3, polish 2)."""
+    cfg = duffing_rbf_preset()
+    cfg.lift = LiftConfig(
+        kind="fourier", nlift=32, rff_bandwidth=2.0,
+        state_augmented=True, normalize=True,
+    )
+    cfg.update = UpdateConfig(
+        mode="windowed", window=256, ridge=0.3, c_pairing="next",
+        window_carry="woodbury", window_polish=2,
+    )
+    return cfg
+
+
+def duffing_rbf128_preset() -> RunConfig:
+    """The large-lift preset: 126 thinplate-eps RBF centers (k-means) plus
+    the state, nlift 128, 3000 steps, with the Woodbury lane over a
+    256-step window (ridge 1.0, polish 2)."""
+    cfg = duffing_rbf_preset()
+    cfg.lift.nlift = 126
+    cfg.steps = 3000
+    cfg.update = UpdateConfig(
+        mode="windowed", window=256, ridge=1.0, c_pairing="next",
+        window_carry="woodbury", window_polish=2,
+    )
+    return cfg
+
+
 PRESETS = {
     "duffing": duffing_nn_preset,
+    "duffing_rbf": duffing_rbf_preset,
+    "duffing_rbf128": duffing_rbf128_preset,
+    "duffing_rff": duffing_rff_preset,
     "tank": tank_preset,
     "tank3": tank3_preset,
     "pendulum": pendulum_preset,
@@ -265,6 +318,24 @@ def tank_bench_config(steps: int = 400, qp_backend: str = "pallas"
     ``clamp_x0``. The bench samples x0 in U[0, 2] for the tanks
     (``bench.py:103-110``)."""
     cfg = tank_preset()
+    cfg.steps = steps
+    cfg.dtype = "float32"
+    cfg.mpc.horizon = 20
+    cfg.mpc.qp_backend = qp_backend
+    cfg.switch_step = steps // 2
+    cfg.data = dataclasses.replace(cfg.data, n_step=50, n_traj=50)
+    return cfg
+
+
+def rbf128_bench_config(steps: int = 200, qp_backend: str = "pallas"
+                        ) -> RunConfig:
+    """``duffing_rbf128_preset`` with ``bench.py``'s overrides
+    (``BENCH_PRESET=duffing_rbf128``, ``bench.py:52-110``): f32, horizon
+    20, the plant switch at ``steps // 2`` and 50x50 data with the
+    preset's ranges; the lift (126 k-means centers + the state, nlift 128)
+    and the Woodbury estimator are the preset's. The bench samples its
+    8192 scenarios with x0 ~ U[-2, 2]^2 and param_scale 0.15."""
+    cfg = duffing_rbf128_preset()
     cfg.steps = steps
     cfg.dtype = "float32"
     cfg.mpc.horizon = 20

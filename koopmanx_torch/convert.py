@@ -7,6 +7,7 @@ This module imports no JAX. ``arrays`` is a dict:
 - the base lift, one of
   - ``"mlp"``: ``[(W, b), ...]``, W in the (out, in) convention;
   - ``"rbf"``: ``{"centers": (K, n), "kind": str}``;
+  - ``"fourier"``: ``{"w": (D, n), "b": (D,)}``;
 - ``"state_augmented"``, ``"zero_offset"`` (optional, default False): the
   wrappers of ``lifts/base.py`` around the base lift, as ``LiftConfig``
   names them (``zero_offset`` inside ``state_augmented`` when both);
@@ -14,7 +15,11 @@ This module imports no JAX. ``arrays`` is a dict:
 - ``"model0"``: ``(A, B, C)``;
 - ``"rls0"``: ``{"K_A", "r_g", "barX", "r_q", "count"}`` (square-root RLS)
   or ``{"zx", "u", "zy", "x", "idx"}`` (the windowed estimator's rings
-  and cursor);
+  and cursor) with, in the Woodbury lane, ``"g"``, ``"g_inv"``, ``"gz"``,
+  ``"gz_inv"``, ``"mg"``, ``"mc"`` (absent keys, or None, stay None). The
+  rings are cast to the config's ``window_store`` dtype: numpy has no
+  bfloat16, so a compressed ring arrives in float32 and is cast back,
+  which is exact for values the storage dtype holds;
 - ``"params"``: ``{"q_block", "r_block", "u_min", "u_max"}`` and optionally
   ``"cy"``, ``"applied_min"``, ``"applied_max"`` and ``"ref_state"`` (the
   ``MPCParams`` arrays);
@@ -41,13 +46,15 @@ from .lifts.base import (
     state_augmented,
     zero_offset,
 )
+from .lifts.fourier import RFF, fourier_dictionary
 from .lifts.mlp import MLP, encoder_dictionary
 from .lifts.rbf import RBF, rbf_dictionary
-from .run import Pipeline, engine_config, ref_fn_for
+from .run import Pipeline, engine_config, ref_fn_for, store_dtype
 from .systems.library import get_system
 from .types import LinearModel
 
 _INT = {"count", "idx"}
+_RINGS = {"zx", "u", "zy", "x"}
 
 
 def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
@@ -62,6 +69,9 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
     if "rbf" in arrays:
         rbf = arrays["rbf"]
         dictionary = rbf_dictionary(t(rbf["centers"]), rbf["kind"])
+    elif "fourier" in arrays:
+        rff = arrays["fourier"]
+        dictionary = fourier_dictionary(t(rff["w"]), t(rff["b"]))
     else:
         mlp = MLP.from_params([(t(w), t(b)) for w, b in arrays["mlp"]])
         dictionary = encoder_dictionary(mlp, n=system.n)
@@ -79,7 +89,12 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
     model0 = LinearModel(A=t(a), B=t(b), C=t(c))
     r = arrays["rls0"]
     state_cls = WindowState if "zx" in r else SqrtRLSState
-    rls0 = state_cls(**{k: leaf(k, r[k]) for k in state_cls._fields})
+    rls0 = state_cls(**{k: leaf(k, r[k]) for k in state_cls._fields
+                        if r.get(k) is not None})
+    store = store_dtype(cfg)
+    if state_cls is WindowState and store is not None:
+        rls0 = rls0._replace(**{k: getattr(rls0, k).to(store)
+                                for k in _RINGS})
     p = arrays["params"]
     opt = lambda k: None if p.get(k) is None else t(p[k])
     params = MPCParams(
@@ -111,7 +126,10 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
 
 def pipeline_to_numpy(pipe: Pipeline) -> Dict[str, Any]:
     """The inverse of :func:`pipeline_from_numpy` (for round trips)."""
-    n = lambda x: x.detach().cpu().numpy()
+    def n(x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
     d = pipe.dictionary
     arrays = {"normalizer": (n(d.mu), n(d.sc)) if d.is_normalized else None}
     enc = d.encoder
@@ -123,11 +141,14 @@ def pipeline_to_numpy(pipe: Pipeline) -> Dict[str, Any]:
         enc = enc.inner.encoder
     if isinstance(enc, RBF):
         arrays["rbf"] = {"centers": n(enc.centers), "kind": enc.kind}
+    elif isinstance(enc, RFF):
+        arrays["fourier"] = {"w": n(enc.w), "b": n(enc.b)}
     else:
         arrays["mlp"] = [(n(w), n(b)) for w, b in enc.params()]
     arrays.update({
         "model0": tuple(n(x) for x in pipe.model0),
-        "rls0": {k: n(v) for k, v in pipe.rls0._asdict().items()},
+        "rls0": {k: None if v is None else n(v)
+                 for k, v in pipe.rls0._asdict().items()},
         "params": {k: None if v is None else n(v)
                    for k, v in pipe.params._asdict().items()},
         "x_init": n(pipe.x_init),

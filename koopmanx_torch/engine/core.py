@@ -4,9 +4,10 @@ The port has the box path of ``make_control_solver`` (:383-729) with the
 du formulation (:423-425), the applied-input window folded into the first
 decision block's bounds (``applied_bounds='box'``, :519-584), the dither
 probe and the du accumulator (:686-704); the ``rls_sqrt`` and
-``windowed`` (refit from the ring buffers, :939-981) branches of
-``make_estimator_update`` with the model guard (:988-1008) applied per
-scenario; and ``change_reset`` (:1015-1047). Every function takes a
+``windowed`` branches of ``make_estimator_update`` (the Woodbury lane,
+:922-938, and the refit from the ring buffers, :939-981) with the model
+guard (:988-1008) applied per scenario; and ``change_reset``
+(:1015-1047). Every function takes a
 leading scenario axis where the JAX package was ``vmap``-ed, and the step
 index is a Python int, so each ``lax.cond`` on it is a plain branch.
 Options of paths not ported yet raise ``NotImplementedError`` naming their
@@ -29,7 +30,14 @@ from ..control.condensed import (
 )
 from ..control.qp import ADMMConfig, make_box_qp_solver
 from ..edmd.rls import sqrt_rls_model, sqrt_rls_update_ab, sqrt_rls_update_c
-from ..edmd.windowed import WindowState, window_model, window_update
+from ..edmd.windowed import (
+    WindowState,
+    window_model,
+    window_model_carry,
+    window_reanchor,
+    window_update,
+    window_update_carry,
+)
 from ..lifts.base import Dictionary
 from ..types import LinearModel, QPSolution
 
@@ -82,12 +90,16 @@ class EngineConfig:
     residual_ema: float = 0.98
     # 'windowed' update: Schulz steps of the refit (the spectral filter),
     # the late (shorter) chain from window_filter_warmup on (0: none), the
-    # refit cadence past the warm-up, and the lanes of item 11
+    # refit cadence past the warm-up; window_carry='woodbury' carries the
+    # window's statistics instead, with window_polish Newton-Schulz steps
+    # a step and an exact rebuild every window_anchor steps (0: never)
     window_filter: int = 24
     window_filter_late: int = 0
     window_filter_warmup: int = 300
     window_refit_every: int = 1
     window_carry: str = "none"
+    window_polish: int = 1
+    window_anchor: int = 0
     dither: float = 0.0
     # failure detection: f_clamp saturates prediction-matrix entries;
     # model_guard holds the last sane model when the new one is non-finite
@@ -120,8 +132,6 @@ def check_supported(cfg: EngineConfig) -> None:
         (cfg.state_bounds, "state_bounds", "item 12"),
         (cfg.update not in ("rls_sqrt", "windowed", "off"),
          f"update={cfg.update!r}", "item 13"),
-        (cfg.update == "windowed" and cfg.window_carry != "none",
-         f"window_carry={cfg.window_carry!r}", "item 11"),
         (cfg.qp_kkt_refine > 0, "qp_kkt_refine (carried KKT inverse)",
          "L3"),
         (cfg.qp_kkt_bf16, "qp_kkt_bf16", "L3"),
@@ -140,9 +150,12 @@ def check_supported(cfg: EngineConfig) -> None:
 
 def _tree_finite(leaves) -> Tensor:
     """Per scenario: all leaves finite, as isfinite(sum |leaf|) in float32
-    (``core.py:292-309``). Leaves carry a leading batch axis."""
+    (``core.py:292-309``). Leaves carry a leading batch axis; ``None``
+    leaves (the refit lane's absent carried statistics) are skipped."""
     total = None
     for leaf in leaves:
+        if leaf is None:
+            continue
         s = leaf.reshape(leaf.shape[0], -1).to(torch.float32).abs().sum(-1)
         total = s if total is None else total + s
     return torch.isfinite(total)
@@ -162,9 +175,13 @@ def _spectral_radius_estimate(a: Tensor, iters: int = 12) -> Tensor:
 
 
 def _select(pred: Tensor, new, old):
-    """Per-scenario ``where`` over the leaves of two NamedTuples."""
+    """Per-scenario ``where`` over the leaves of two NamedTuples; ``None``
+    leaves stay ``None``."""
     out = []
     for a, b in zip(new, old):
+        if a is None:
+            out.append(None)
+            continue
         mask = pred.reshape(pred.shape + (1,) * (a.dim() - 1))
         out.append(torch.where(mask, a, b))
     return type(new)(*out)
@@ -287,7 +304,13 @@ def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
                          z_next: Tensor, c_target: Tensor, step: int):
         if cfg.update == "off":
             return rls, model
-        if cfg.update == "windowed":
+        if cfg.update == "windowed" and cfg.window_carry == "woodbury":
+            rls_new = window_update_carry(rls, z, u, z_next, c_target,
+                                          polish=cfg.window_polish)
+            if cfg.window_anchor > 0 and (step + 1) % cfg.window_anchor == 0:
+                rls_new = window_reanchor(rls_new, max(cfg.rls_ridge, 1e-5))
+            new_model = window_model_carry(rls_new, nlift)
+        elif cfg.update == "windowed":
             # the ring absorbs every observation, refit or not
             rls_new = window_update(rls, z, u, z_next, c_target)
             new_model = windowed_refit(rls_new, step)

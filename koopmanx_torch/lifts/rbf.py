@@ -1,12 +1,16 @@
-"""RBF dictionaries (counterpart of ``koopmanx/lifts/rbf.py:24-66``).
+"""RBF dictionaries and k-means centers (counterpart of
+``koopmanx/lifts/rbf.py:24-94``).
 
 The kinds of the reference's ``rbf.m:10-45`` (thinplate, gauss, invquad,
 invmultquad, polyharmonic) and ``duffing_RBF.py:20-23`` (thinplate_eps)
 against K centers held as a buffer. Where ``rbf.m`` patches r = 0's NaN to
-0, the guard is a ``where`` on r^2 > 0, as in the JAX package. The k-means
-centers of the JAX package are not ported (ROADMAP queue A, item 11).
+0, the guard is a ``where`` on r^2 > 0, as in the JAX package.
+:func:`kmeans` places the centers by Lloyd's algorithm over the training
+states, on the CPU at setup.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch import Tensor, nn
@@ -55,3 +59,34 @@ def rbf_dictionary(centers: Tensor, kind: str = "thinplate", eps: float = 1.0,
                    k: int = 1) -> Dictionary:
     n_centers, n = centers.shape
     return Dictionary(RBF(centers, kind, eps, k), nlift=n_centers, n=n)
+
+
+def lloyd(points: Tensor, centers0: Tensor, iters: int = 50
+          ) -> Tuple[Tensor, Tensor]:
+    """``iters`` Lloyd iterations from ``centers0`` (k, n) over ``points``
+    (S, n): assign each point to its nearest center (the first on a tie),
+    move each center to its cluster's mean; an empty cluster keeps its
+    center. Returns (centers, the final assignments (S,))."""
+    k = centers0.shape[0]
+
+    def assign(centers: Tensor) -> Tensor:
+        d2 = ((points[:, None, :] - centers[None, :, :]) ** 2).sum(-1)
+        return torch.argmin(d2, dim=-1)
+
+    centers = centers0
+    for _ in range(iters):
+        one_hot = nn.functional.one_hot(assign(centers), k).to(points.dtype)
+        counts = one_hot.sum(0)[:, None]  # (k, 1)
+        sums = one_hot.transpose(0, 1) @ points  # (k, n)
+        centers = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
+                              centers)
+    return centers, assign(centers)
+
+
+def kmeans(gen: torch.Generator, points: Tensor, k: int, iters: int = 50
+           ) -> Tuple[Tensor, Tensor]:
+    """k-means centers (k, n) and assignments (S,) of ``points`` (S, n),
+    from k distinct points drawn with ``gen`` (the reference's
+    ``sklearn.cluster.KMeans``, ``duffing_RBF.py:44-46``)."""
+    init = torch.randperm(points.shape[0], generator=gen)[:k]
+    return lloyd(points, points[init.to(points.device)], iters)

@@ -1,9 +1,10 @@
 """RunConfig -> pipeline -> closed-loop results (counterpart of
 ``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp, with the ``.mat``
-weights and their fallback, and rbf with random centers), ``_mpc_params``
-:132-203, ``engine_config`` :206-251, ``_ref_fn`` :254-270 (constant) and
-``build_pipeline`` :282-412, with the windowed estimator's prefilled
-ring).
+weights and their fallback; rbf with random or k-means centers; random
+Fourier features), ``_mpc_params`` :132-203, ``engine_config`` :206-251,
+``_ref_fn`` :254-270 (constant) and ``build_pipeline`` :282-412, with the
+windowed estimator's prefilled ring, compressed or not, and the Woodbury
+lane's carried statistics).
 """
 from __future__ import annotations
 
@@ -28,9 +29,10 @@ from .lifts.base import (
     state_augmented,
     zero_offset,
 )
+from .lifts.fourier import fourier_dictionary, rff_init
 from .lifts.io import load_mat_mlp
 from .lifts.mlp import MLP, encoder_dictionary, mlp_init
-from .lifts.rbf import rbf_dictionary
+from .lifts.rbf import kmeans, rbf_dictionary
 from .systems.data import Snapshots, collect, uniform
 from .systems.library import get_system
 from .types import LinearModel
@@ -69,9 +71,12 @@ def resolve_weights_path(path: Optional[str], system: str) -> Optional[str]:
 def build_dictionary(cfg: C.RunConfig, data: Snapshots,
                      gen: torch.Generator) -> Dictionary:
     """The lift: an MLP (its ``.mat`` weights, or a random He init from
-    ``gen``) or thinplate-family RBFs with centers ~ U[0, 1)^n from
-    ``gen``; then ``zero_offset``, ``state_augmented`` (the two together
-    are [x; g(x) - g(0)]); then ``normalized`` on the training states."""
+    ``gen``), thinplate-family RBFs with k-means centers over the training
+    states or centers ~ U[0, 1)^n, or random Fourier features whose
+    bandwidth is in units of the training states' std (ddof 0, floored at
+    1e-3), all drawn from ``gen``; then ``zero_offset``,
+    ``state_augmented`` (the two together are [x; g(x) - g(0)]); then
+    ``normalized`` on the training states."""
     lc = cfg.lift
     system = get_system(cfg.system)
     dtype = torch_dtype(cfg.dtype)
@@ -91,16 +96,20 @@ def build_dictionary(cfg: C.RunConfig, data: Snapshots,
                                    n=system.n)
     elif lc.kind == "rbf":
         if lc.rbf_centers == "kmeans":
-            raise NotImplementedError(
-                "k-means RBF centers are not ported yet (ROADMAP queue A, "
-                "item 11)")
-        centers = uniform(gen, (lc.nlift, system.n), 0.0, 1.0, dtype)
+            centers, _ = kmeans(gen, data.x.to(dtype), lc.nlift)
+        else:
+            centers = uniform(gen, (lc.nlift, system.n), 0.0, 1.0, dtype)
         d = rbf_dictionary(centers, lc.rbf_type)
-    else:
+    elif lc.kind == "fourier":
+        scale = torch.clamp(data.x.to(dtype).std(0, correction=0), min=1e-3)
+        w, b = rff_init(gen, system.n, lc.nlift, bandwidth=lc.rff_bandwidth,
+                        feature_scale=scale, dtype=dtype)
+        d = fourier_dictionary(w, b)
+    elif lc.kind in ("hermite", "monomial", "identity"):
         raise NotImplementedError(
-            f"lift kind {lc.kind!r} is not ported yet (ROADMAP queue A, "
-            "item 11 and L7)"
-        )
+            f"lift kind {lc.kind!r} is not ported yet (ROADMAP queue A, L7)")
+    else:
+        raise ValueError(f"unknown lift kind {lc.kind!r}")
     if lc.zero_offset:
         d = zero_offset(d)
     if lc.state_augmented:
@@ -180,6 +189,8 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
         window_filter_warmup=uc.window_filter_warmup,
         window_refit_every=uc.window_refit_every,
         window_carry=uc.window_carry,
+        window_polish=uc.window_polish,
+        window_anchor=uc.window_anchor,
         dither=uc.dither,
         switch_step=cfg.switch_step,
         markov=mc.markov,
@@ -212,21 +223,35 @@ def ref_fn_for(cfg: C.RunConfig, py: int, device=None):
     return refgen.constant(value, cfg.mpc.horizon, py, dtype, device)
 
 
+_STORE = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def store_dtype(cfg: C.RunConfig) -> Optional[torch.dtype]:
+    """The ring's storage dtype: None (the run's own dtype) for
+    ``window_store='float32'``, as in the JAX package, else bfloat16 or
+    float16."""
+    name = cfg.update.window_store
+    if name == "float32":
+        return None
+    if name not in _STORE:
+        raise ValueError(f"unknown window_store {name!r}")
+    return _STORE[name]
+
+
 def initial_estimator(cfg: C.RunConfig, dictionary: Dictionary,
                       data: Snapshots):
     """One scenario's estimator state: the square-root RLS init, or for
-    ``update.mode='windowed'`` a ring prefilled with the last W lifted
-    training snapshots (``koopmanx/run.py:350-363``)."""
+    ``update.mode='windowed'`` a ring (in ``window_store``) prefilled with
+    the last W lifted training snapshots, with the Woodbury lane's
+    statistics built from it (``koopmanx/run.py:350-363``)."""
     system = get_system(cfg.system)
     uc = cfg.update
     dtype = torch_dtype(cfg.dtype)
     if uc.mode == "windowed":
-        if uc.window_store != "float32":  # "float32": the run's own dtype
-            raise NotImplementedError(
-                f"window_store={uc.window_store!r} is not ported yet "
-                "(ROADMAP queue A, item 11)")
         state = window_init(uc.window, dictionary.nlift, system.m, system.n,
-                            dtype)
+                            dtype, carry=uc.window_carry == "woodbury",
+                            ridge=max(uc.ridge, 1e-5),
+                            store_dtype=store_dtype(cfg))
         return window_prefill(state, dictionary(data.x), data.u,
                               dictionary(data.y), data.x)
     return sqrt_rls_init(dictionary.nlift, system.m, system.n, uc.c_ab,
@@ -271,7 +296,8 @@ def build_pipeline(cfg: C.RunConfig, x_init=None,
             (system.x_init,) * system.n)
     x_init = torch.as_tensor(x_init, dtype=dtype)
 
-    to = lambda tree: type(tree)(*(t.to(dev) for t in tree))
+    to = lambda tree: type(tree)(*(None if t is None else t.to(dev)
+                                   for t in tree))
     dictionary = dictionary.to(dev)
     params = mpc_params(cfg, system, dev)
     return Pipeline(

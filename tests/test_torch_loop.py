@@ -224,11 +224,13 @@ def test_build_pipeline_runs_the_flagship_loop_small_on_cpu():
 
 def test_unported_options_raise():
     """The options of later slices raise, naming their ROADMAP item: the
-    Woodbury lane, a compressed ring and k-means centers (item 11), the
-    explicit applied-window rows (item 12)."""
-    cases = [("update", "window_carry", "woodbury", "item 11"),
-             ("update", "window_store", "bfloat16", "item 11"),
-             ("lift", "rbf_centers", "kmeans", "item 11"),
+    storage-method update (item 13), the polynomial and identity lifts
+    (L7), the explicit applied-window rows (item 12). The Woodbury lane, a
+    compressed ring, k-means centers and Fourier lifts (item 11) are
+    ported (tests/test_torch_rbf128.py)."""
+    cases = [("update", "mode", "storage", "item 13"),
+             ("lift", "kind", "hermite", "L7"),
+             ("lift", "kind", "identity", "L7"),
              ("mpc", "applied_bounds", "rows", "item 12")]
     for part, field, value, item in cases:
         cfg = TC.tank_bench_config(steps=2)

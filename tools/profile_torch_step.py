@@ -10,10 +10,16 @@ in both of its regimes: ``warm-up`` (the first ``window_filter_warmup``
 steps, which refit the window every step) and ``cadence`` (the steps past
 it, which refit one step in ``window_refit_every`` with the late chain;
 profiled from step 0 with the warm-up set to 0, over ``--steps`` rounded up
-to whole cadence cycles). For each regime it prints the top device kernels
+to whole cadence cycles); ``--config rbf128`` the large-lift loop
+(``configs.rbf128_bench_config``: nlift 128, the Woodbury lane), whose
+stages are the ring write, the Gram motion and Sherman-Morrison updates
+inside ``window_update_carry``, the Newton-Schulz polish, the model from
+the carried statistics, the finiteness sums, the per-scenario select, the
+prediction matrices and the model guard's spectral radius. For each
+regime it prints the top device kernels
 by time, then one JSON line: wall ms per step, device-busy ms per step (the
 union of the kernels' intervals), the device's idle share, kernel launches
-per step, the box-ADMM kernel's share of busy time and device time per
+per step, the peak device memory of the unprofiled run, the box-ADMM kernel's share of busy time and device time per
 launch, and the device time under each of a few named stages
 (``torch.profiler.record_function`` around the engine's functions: for the
 tank, the Newton-Schulz chains, the refit, the ring write and the
@@ -22,7 +28,8 @@ by the steps each takes in the shipped preset's run (``tank_preset``) and
 in ``chip_smoke.py``'s phase 7. ``--out`` also writes the whole kernel
 tables to a file.
 
-    python3 tools/profile_torch_step.py [--config flagship|tank] [--steps 10]
+    python3 tools/profile_torch_step.py [--config flagship|tank|rbf128]
+        [--steps 10]
         [--batch 8192] [--out FILE]
 """
 from __future__ import annotations
@@ -44,7 +51,8 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=5)
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--backend", default="pallas")
-    ap.add_argument("--config", default="flagship", choices=("flagship", "tank"))
+    ap.add_argument("--config", default="flagship",
+                    choices=("flagship", "tank", "rbf128"))
     ap.add_argument("--out", default=None, help="write the kernel table here")
     args = ap.parse_args()
 
@@ -55,6 +63,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from koopmanx_torch.configs import (
         flagship_config,
+        rbf128_bench_config,
         tank_bench_config,
         tank_preset,
     )
@@ -70,7 +79,13 @@ def main() -> int:
                          (core, "window_update"), (core, "_tree_finite"),
                          (core, "sqrt_rls_update_ab"),
                          (core, "sqrt_rls_update_c"),
-                         (core, "sqrt_rls_model"), (qp, "spd_inverse")):
+                         (core, "sqrt_rls_model"), (qp, "spd_inverse"),
+                         (core, "window_update_carry"),
+                         (windowed, "window_update"), (windowed, "_sm_step"),
+                         (windowed, "_polished"),
+                         (core, "window_model_carry"), (core, "_select"),
+                         (core, "prediction_matrices"),
+                         (core, "_spectral_radius_estimate")):
         stages[name] = 0.0
 
         def ranged(*a, _fn=getattr(module, name), _name=name, **kw):
@@ -85,6 +100,9 @@ def main() -> int:
             if warmup_end is not None:
                 cfg.update.window_filter_warmup = warmup_end
             x0_range = (0.0, 2.0)
+        elif args.config == "rbf128":
+            cfg = rbf128_bench_config(steps=steps, qp_backend=args.backend)
+            x0_range = (-2.0, 2.0)
         else:
             cfg = flagship_config(steps=steps, horizon=20,
                                   qp_backend=args.backend)
@@ -99,10 +117,12 @@ def main() -> int:
         loop(args.warmup, warmup_end)()
         run = loop(steps, warmup_end)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_plain = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -144,10 +164,13 @@ def main() -> int:
             # busy time from the profiled run against the unprofiled wall
             "device_idle_share": 1.0 - busy_us / (wall_plain * 1e6),
             "device_ops_per_step": len(spans) / steps,
+            "peak_device_gib": peak / 2**30,
             "box_admm_share_of_busy": admm_us / busy_us if busy_us else None,
             "box_admm_us_per_launch": admm_us / admm_n if admm_n else None,
             # device time under each named stage (nested: window_model
-            # holds the Schulz chains), per step and as a share of busy time
+            # holds the Schulz chains; window_update_carry holds the ring
+            # write, the Sherman-Morrison steps and the polish), per step
+            # and as a share of busy time
             "stage_device_ms_per_step": {k: us / steps / 1e3
                                          for k, us in stage_us.items() if us},
             "stage_share_of_busy": {k: us / busy_us for k, us in
