@@ -31,10 +31,12 @@ Phases, each of which fails the run on error:
    128, the first and widest with it in shared memory; B=1000, float32 and
    float64), and at the other paths' inputs at B=8192 in float32 and
    float64: nx = 10 (the shipped duffing preset of phase 8, register
-   instance 16) and nx = 20 with the tank path's per-scenario folded
+   instance 16), nx = 20 with the tank path's per-scenario folded
    bounds (phase 7: the first move's box cut by the applied window, down
-   to lo = hi), each case with its registers, block size, resident warps
-   per SM and waves; both fused kernels also at N = 10 (the convergence
+   to lo = hi) and nx = 40 (tank_mimo's N*m, phase 11, the shared-memory
+   instance: synthetic QPs, timed against the bound, then the phase 11
+   loop's own first-step KKT inverse, rho, q and box), each case with its
+   registers, block size, resident warps per SM and waves; both fused kernels also at N = 10 (the convergence
    gate's shape; B3's shared instance at NXP = 12, B2's register instance
    at NXP = 12) and at m = 2 (N*m = 40: B3's global instance, B2's first
    design), ``fused_qp`` at N = 8, m = 4 (N*m = 32, its widest register
@@ -104,11 +106,33 @@ Phases, each of which fails the run on error:
    steps, and the phase 9 loop with its ring stored in bfloat16, both
    through the kernel route with their launches counted: 200 each,
    finite, |u| <= 2; their quality and peak memory printed beside phase
-   9's.
+   9's;
+11. drive the two-pump tank, the JAX package's ``BENCH_PRESET=tank_mimo``
+   workload (``koopmanx_torch.configs.tank_mimo_bench_config``: 8192
+   scenarios with x0 ~ U[0, 2]^2, param_scale 0.15, m = 2 under a +-4 box
+   per channel, thinplate RBF lift of 10 normalized, N = 20, the windowed
+   estimator over 256 observations refit every step, f32; 200 steps, the
+   switch at step 100), through the kernel route (the dense 40 x 40 KKT
+   inverse, then ``box_admm`` at nx = 40) and the plain route (the
+   output-space low-rank inverse, then the plain ADMM), counts zeroed
+   before each run and read after: 200 ``box_admm`` launches, then 0.
+   Gates: everything finite, |u| <= 4 per channel, x >= 0, kernel vs plain
+   route over the first 16 steps in float64, the float32 batch-mean
+   control quality of x2, and pump 2 carrying the load over the last 50
+   steps (mean |u2| > mean |u1|). Prints the x2 tail means before and
+   after the switch, both routes' warm wall time in turns and peak device
+   memory;
+12. drive the general-inequality path (the plain ADMM with extra rows,
+   on either route, so 0 launches) at 8192 scenarios, f32, 60 steps: the
+   tank bench with its applied window as explicit rows (|du| <= 0.5 and
+   |u| <= 8 up to one f32 rounding) and the flagship with the state box
+   |x| <= 1.05 over the horizon (|u| <= 2), each on both routes, with
+   its warm ms/step and quality printed beside the box formulation of
+   the same config (not gated).
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
-line, the card line
+line, a tank_mimo timing JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -174,6 +198,14 @@ PRESET_STEPS = 200
 # phases 9 and 10: the rbf128 bench and the duffing_rff preset, 200 steps
 # (the bench's own; the presets run 3000 and 10000), the switch at 100
 RBF128_STEPS = 200
+# phase 11: the tank_mimo bench (tank_mimo_bench_config), 200 steps (the
+# bench's own; the preset runs 3000), the switch at 100; its input box per
+# channel; the KKT width N*m = 40 that B1 runs there (shared-memory
+# instance), also checked in phase 2
+MIMO_STEPS, MIMO_U_MAX, MIMO_NX = 200, 4.0, 40
+# phase 12: the general-inequality path (the tank's applied window as
+# rows, the flagship's state box), a short run
+GENERAL_STEPS, STATE_BOX = 60, (-1.05, 1.05)
 
 
 def fail(msg: str) -> None:
@@ -308,6 +340,51 @@ def box_inputs(batch: int, nx: int, dtype, device, seed: int,
         lo = torch.full_like(q, -1.5)
         hi = -lo
     return (minv.contiguous(), q, lo, hi, x0, torch.zeros_like(q), rho)
+
+
+def tank_mimo_step0_inputs(device, dtype: str):
+    """B1's arguments at the tank_mimo bench loop's first step (kernel
+    route, 8192 scenarios): the engine's own dense 40 x 40 KKT inverse,
+    rho, q and the per-channel box, captured on their way into
+    :func:`box_admm` during a one-step run."""
+    from koopmanx_torch.control import qp
+
+    captured = []
+    real = qp.box_admm
+
+    def capture(*args, **kw):
+        captured.append(args)
+        return real(*args, **kw)
+
+    qp.box_admm = capture
+    try:
+        mimo_loop("pallas", device, steps=1, dtype=dtype)()
+    finally:
+        qp.box_admm = real
+    if len(captured) != 1 or captured[0][0].shape[-1] != MIMO_NX:
+        fail(f"tank_mimo step 0 gave {len(captured)} box-ADMM calls")
+    return captured[0]
+
+
+def box_admm_reassociated(minv, q, lo, hi, x0, y0, rho, iters, sigma,
+                          alpha):
+    """The plain version's iteration with its products summed in another
+    order (an elementwise product summed from the last column) and
+    y * (1 / rho): its distance from ``box_admm_reference`` is the
+    round-off floor of the comparison on these inputs."""
+    from koopmanx_torch.ops.box_admm import BoxADMMOut
+
+    rho_c = rho[:, None]
+    x, y = x0, y0
+    z = lo.maximum(x).minimum(hi)
+    for _ in range(iters):
+        rhs = sigma * x - q + rho_c * z - y
+        xt = (minv * rhs[:, None, :]).flip(-1).sum(-1)
+        x_mid = alpha * xt + (1.0 - alpha) * z
+        z_new = lo.maximum(x_mid + y * (1.0 / rho_c)).minimum(hi)
+        y = y + rho_c * (x_mid - z_new)
+        x, z = xt, z_new
+    return BoxADMMOut(xt=x, z=z, y=y)
 
 
 def box_admm_bound_ms(batch: int, nx: int, iters: int, dtype: str):
@@ -754,39 +831,68 @@ def phase_kernel_checks(device, ptxas_regs=None):
     )
 
     f32, f64 = torch.float32, torch.float64
-    runs = [(f32, BATCH, HORIZON, False), (f32, 1000, HORIZON, False),
-            (f64, 1000, HORIZON, False)]
-    runs += [(dtype, 1000, nx, False) for nx in BOX_WIDTHS
+    runs = [(f32, BATCH, HORIZON, "shared"), (f32, 1000, HORIZON, "shared"),
+            (f64, 1000, HORIZON, "shared")]
+    runs += [(dtype, 1000, nx, "shared") for nx in BOX_WIDTHS
              for dtype in (f32, f64)]
-    # the shipped duffing preset's width, and the tank path's folded
-    # per-scenario bounds at its width, both at the paths' batch
-    runs += [(dtype, BATCH, nx, folded)
-             for nx, folded in ((PRESET_NX, False), (HORIZON, True))
+    # the shipped duffing preset's width, the tank path's folded
+    # per-scenario bounds at its width, and tank_mimo's N*m = 40 (the
+    # shared-memory instance; synthetic, then the loop's own first step),
+    # all at the paths' batch
+    runs += [(dtype, BATCH, nx, bounds)
+             for nx, bounds in ((PRESET_NX, "shared"), (HORIZON, "folded"),
+                                (MIMO_NX, "shared"),
+                                (MIMO_NX, "tank_mimo step 0"))
              for dtype in (f32, f64)]
     cases = []
     main = None
-    for dtype, batch, nx, folded in runs:
+    for dtype, batch, nx, bounds in runs:
         name = str(dtype).replace("torch.", "")
-        args = box_inputs(batch, nx, dtype, device, seed=batch, folded=folded)
+        if bounds == "tank_mimo step 0":
+            args = tank_mimo_step0_inputs(device, name)
+        else:
+            args = box_inputs(batch, nx, dtype, device, seed=batch,
+                              folded=bounds == "folded")
         kw = dict(iters=ITERS, sigma=SIGMA, alpha=ALPHA)
         out = box_admm(*args, **kw)
         ref = box_admm_reference(*args, **kw)
         torch.cuda.synchronize()
-        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        dist = lambda a, b: max(float((o - r).abs().max())
+                                for o, r in zip(a, b))
+        err = dist(out, ref)
         scale = max(1.0, max(float(r.abs().max()) for r in ref))
         finite = all(bool(torch.isfinite(o).all()) for o in out)
         shape = launch_shape(dtype, batch, nx)
         case = {"dtype": name, "batch": batch, "nx": nx, "iters": ITERS,
-                "bounds": "folded" if folded else "shared",
-                "max_abs_err": err, "tol": TOL[name] * scale,
-                "launch": shape._asdict()}
+                "bounds": bounds, "max_abs_err": err,
+                "tol": TOL[name] * scale, "launch": shape._asdict()}
+        if bounds == "tank_mimo step 0":
+            # the loop's own KKT inverse (condition number 106, the same in
+            # every scenario) lifts the float32 round-off floor above TOL:
+            # the plain version summed in another order moves by 3.4e-4 on
+            # these inputs (CPU). The kernel is held to twice that floor,
+            # measured here on the same inputs; in float64 TOL is larger
+            case["floor"] = dist(box_admm_reassociated(*args, **kw), ref)
+            case["tol"] = max(case["tol"], 2.0 * case["floor"])
+        timing = ""
+        if nx == MIMO_NX and bounds == "shared":
+            # tank_mimo's width: device time against the bound
+            case["ms"] = device_ms(lambda: box_admm(*args, **kw), reps=50)
+            case["bound_ms"], case["bound_by"] = box_admm_bound_ms(
+                batch, nx, ITERS, name)
+            case["bound_share"] = case["bound_ms"] / case["ms"]
+            timing = (f"; {case['ms']:.5f} ms device, bound "
+                      f"{case['bound_ms']:.5f} ms ({case['bound_by']}), "
+                      f"{100 * case['bound_share']:.1f} % of it")
         cases.append(case)
-        print(f"kernel box_admm {name} B={batch} nx={nx} {case['bounds']} "
+        floor = (f", plain reassociated {case['floor']:.3e}"
+                 if "floor" in case else "")
+        print(f"kernel box_admm {name} B={batch} nx={nx} {bounds} "
               f"bounds: max|kernel-plain| ="
-              f" {err:.3e} (tol {case['tol']:.1e}); {shape.registers} "
+              f" {err:.3e} (tol {case['tol']:.1e}{floor}); {shape.registers} "
               f"registers, {shape.warps_per_block} warps/block, "
               f"{shape.resident_warps_per_sm} resident warps/SM, "
-              f"{shape.waves} waves", flush=True)
+              f"{shape.waves} waves{timing}", flush=True)
         if not finite or not err <= case["tol"]:
             fail(f"box_admm disagrees with its plain version: {case}")
         if main is None:  # float32 at the main path's shape
@@ -895,26 +1001,11 @@ def quality_x2(log, tail: int = 50):
 
 def tank_loop(backend: str, device, steps: int = TANK_STEPS,
               dtype: str = "float32"):
-    """The tank bench loop as a thunk, through the user entry points."""
-    import torch
+    """The tank bench loop as a thunk (x0 ~ U[0, 2]^2)."""
     from koopmanx_torch.configs import tank_bench_config
-    from koopmanx_torch.engine.scenario import sample_scenarios
-    from koopmanx_torch.run import build_pipeline, run_scenarios
-    from koopmanx_torch.systems.library import get_system
 
-    cfg = tank_bench_config(steps=steps, qp_backend=backend)
-    cfg.dtype = dtype
-    pipe = build_pipeline(cfg, device=device)
-    sc = sample_scenarios(get_system(cfg.system),
-                          torch.Generator().manual_seed(0), BATCH,
-                          x0_range=(0.0, 2.0), param_scale=0.15,
-                          dtype=getattr(torch, dtype), device=device)
-
-    def run():
-        return run_scenarios(pipe, sc)
-
-    run.pipe = pipe
-    return run
+    return config_loop(tank_bench_config(steps=steps, qp_backend=backend),
+                       device, dtype, x0_range=(0.0, 2.0))
 
 
 def check_tank_loop(carry, log, name: str, steps: int = TANK_STEPS):
@@ -1043,10 +1134,10 @@ def phase_duffing_preset(device, flagship_quality):
     return counts
 
 
-def woodbury_loop(cfg, device, dtype: str = "float32"):
-    """A Woodbury-lane Duffing loop (``cfg``) as a thunk through the user
-    entry points, over the bench's scenarios (x0 ~ U[-2, 2]^2,
-    param_scale 0.15)."""
+def config_loop(cfg, device, dtype: str = "float32",
+                x0_range=(-2.0, 2.0)):
+    """The loop of ``cfg`` as a thunk through the user entry points, over
+    the bench's scenarios (x0 ~ U[x0_range]^2, param_scale 0.15)."""
     import torch
     from koopmanx_torch.engine.scenario import sample_scenarios
     from koopmanx_torch.run import build_pipeline, run_scenarios
@@ -1056,8 +1147,8 @@ def woodbury_loop(cfg, device, dtype: str = "float32"):
     pipe = build_pipeline(cfg, device=device)
     sc = sample_scenarios(get_system(cfg.system),
                           torch.Generator().manual_seed(0), BATCH,
-                          param_scale=0.15, dtype=getattr(torch, dtype),
-                          device=device)
+                          x0_range=x0_range, param_scale=0.15,
+                          dtype=getattr(torch, dtype), device=device)
 
     def run():
         return run_scenarios(pipe, sc)
@@ -1072,7 +1163,7 @@ def rbf128_loop(backend: str, device, steps: int = RBF128_STEPS,
 
     cfg = rbf128_bench_config(steps=steps, qp_backend=backend)
     cfg.update.window_store = store
-    return woodbury_loop(cfg, device, dtype)
+    return config_loop(cfg, device, dtype)
 
 
 def check_woodbury_loop(carry, log, name: str, steps: int = RBF128_STEPS):
@@ -1182,7 +1273,7 @@ def phase_rff_and_bf16(device, rbf128_report):
     cfg = duffing_rff_preset()
     cfg.steps = RBF128_STEPS
     cfg.mpc.qp_backend = "pallas"
-    runs = {"duffing_rff": woodbury_loop(cfg, device),
+    runs = {"duffing_rff": config_loop(cfg, device),
             "rbf128 bf16 ring": rbf128_loop("pallas", device,
                                             store="bfloat16")}
     counts, report = {}, {"rbf128 f32 ring (phase 9)": rbf128_report}
@@ -1204,6 +1295,174 @@ def phase_rff_and_bf16(device, rbf128_report):
     print("phase 10 " + json.dumps({"batch": BATCH, "steps": RBF128_STEPS,
                                     **report}), flush=True)
     return counts["duffing_rff"], counts["rbf128 bf16 ring"]
+
+
+def mimo_loop(backend: str, device, steps: int = MIMO_STEPS,
+              dtype: str = "float32"):
+    """The tank_mimo bench loop as a thunk (x0 ~ U[0, 2]^2)."""
+    from koopmanx_torch.configs import tank_mimo_bench_config
+
+    return config_loop(tank_mimo_bench_config(steps=steps, qp_backend=backend),
+                       device, dtype, x0_range=(0.0, 2.0))
+
+
+def check_mimo_loop(carry, log, name: str, steps: int = MIMO_STEPS):
+    """Finite logs and final carry (ring and model included), |u| <= 4
+    per channel (the first move is clamped exactly), x >= 0, the shapes."""
+    import torch
+
+    leaves = [log.x, log.u, carry.x, carry.u_applied, carry.warm_x,
+              *carry.model, *(t for t in carry.rls if t is not None)]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        fail(f"tank_mimo {name} loop: non-finite logs or final carry")
+    u_max = log.u.abs().amax((0, 1)).tolist()
+    x_min = float(log.x.min())
+    if max(u_max) > MIMO_U_MAX:
+        fail(f"tank_mimo {name} loop: |u| per channel {u_max} > {MIMO_U_MAX}")
+    if x_min < 0.0 or float(carry.x.min()) < 0.0:
+        fail(f"tank_mimo {name} loop: x = {x_min} < 0")
+    if (tuple(log.x.shape) != (BATCH, steps, 2)
+            or tuple(log.u.shape) != (BATCH, steps, 2)):
+        fail(f"tank_mimo {name} loop: shapes {tuple(log.x.shape)}, "
+             f"{tuple(log.u.shape)}")
+    return {"u_abs_max_per_channel": u_max, "x_min": x_min}
+
+
+def pump_means(log, tail: int = 50):
+    """Mean |u1| and |u2| over the last ``tail`` steps, batch-wide."""
+    return log.u[:, -tail:].abs().mean((0, 1)).tolist()
+
+
+def phase_tank_mimo(device, card: str):
+    """Phase 11: the tank_mimo bench through both routes, with its gates.
+    Returns the kernel route's launch counts."""
+    run_kernel = mimo_loop("pallas", device)
+    zero_counts()
+    (carry_k, log_k), cold_k, mem_k = run_with_memory(run_kernel)
+    counts = read_counts()
+    print(f"phase 11 tank_mimo path (pallas): {cold_k:.2f} s cold, launches "
+          f"{counts}, peak {mem_k / 2**30:.2f} GiB", flush=True)
+    if counts != {"box_admm": MIMO_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+        fail(f"the tank_mimo path launched {counts} in {MIMO_STEPS} steps")
+    bounds_k = check_mimo_loop(carry_k, log_k, "pallas")
+
+    run_plain = mimo_loop("xla", device)
+    zero_counts()
+    (carry_p, log_p), cold_p, mem_p = run_with_memory(run_plain)
+    counts_p = read_counts()
+    if any(counts_p.values()):
+        fail(f"the tank_mimo plain route launched {counts_p}")
+    bounds_p = check_mimo_loop(carry_p, log_p, "xla")
+    early = {}
+    for backend in ("pallas", "xla"):
+        carry, log = mimo_loop(backend, device, LOOP_EARLY_STEPS, "float64")()
+        check_mimo_loop(carry, log, f"{backend} float64", LOOP_EARLY_STEPS)
+        early[backend] = log.x
+    dx64 = float((early["pallas"] - early["xla"]).abs().max())
+    (mse_k, sse_k), (mse_p, sse_p) = quality_x2(log_k), quality_x2(log_p)
+    pumps = {"kernel": pump_means(log_k), "plain": pump_means(log_p)}
+    gate = {"batch": BATCH, "nx": MIMO_NX,
+            "dx_first16_f64": dx64, "dx_first16_f64_tol": LOOP_EARLY_TOL,
+            "dx_first16_f32": float((log_k.x[:, :LOOP_EARLY_STEPS]
+                                     - log_p.x[:, :LOOP_EARLY_STEPS])
+                                    .abs().max()),
+            "mse_x2_kernel": mse_k, "mse_x2_plain": mse_p,
+            "sse_x2_kernel": sse_k, "sse_x2_plain": sse_p,
+            "quality_rtol": QUALITY_RTOL, "bounds_kernel": bounds_k,
+            "bounds_plain": bounds_p,
+            "mean_abs_u1_u2_last50": pumps,
+            "peak_gib": {"float32 kernel": mem_k / 2**30,
+                         "float32 plain": mem_p / 2**30}}
+    print("phase 11 gate " + json.dumps(gate), flush=True)
+    if not dx64 <= LOOP_EARLY_TOL:
+        fail(f"float64 tank_mimo kernel and plain loops differ by {dx64} in "
+             f"the first {LOOP_EARLY_STEPS} steps")
+    for a, b, what in ((mse_k, mse_p, "tracking MSE"),
+                       (sse_k, sse_p, "steady-state error")):
+        if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
+            fail(f"tank_mimo x2 {what}: kernel {a} vs plain {b}")
+    for route, (u1, u2) in pumps.items():
+        if not u2 > u1:
+            fail(f"tank_mimo {route} route: pump 2 does not carry the load "
+                 f"over the last 50 steps (mean |u1| {u1}, |u2| {u2})")
+
+    walls = {run_plain: [], run_kernel: []}
+    for fn in (run_plain, run_kernel, run_kernel, run_plain):
+        walls[fn].append(timed(fn)[1])
+    switch = run_kernel.pipe.config.switch_step
+    x2 = log_k.x[..., 1]
+    route = lambda runs: {"runs_s": runs,
+                          "ms_per_step": sum(runs) / 2 / MIMO_STEPS * 1e3,
+                          "solves_per_s": BATCH * MIMO_STEPS * 2 / sum(runs)}
+    line = {"slice": "tank_mimo bench loop, koopmanx_torch", "batch": BATCH,
+            "steps": MIMO_STEPS, "switch_step": switch, "horizon": HORIZON,
+            "nx": MIMO_NX, "dtype": "float32",
+            "kernel_route": {**route(walls[run_kernel]), "cold_wall_s": cold_k,
+                             "peak_gib": mem_k / 2**30},
+            "plain_route": {**route(walls[run_plain]), "cold_wall_s": cold_p,
+                            "peak_gib": mem_p / 2**30},
+            "x2_tail_mean_pre_switch": float(x2[:, switch - 50:switch].mean()),
+            "x2_tail_mean_post_switch": float(x2[:, -50:].mean()),
+            "card": card}
+    print(json.dumps(line), flush=True)
+    return counts
+
+
+def phase_general(device, card: str):
+    """Phase 12: the general-inequality path (the plain ADMM on either
+    route, so no kernel launch) at 8192 scenarios, f32, GENERAL_STEPS
+    steps: the tank bench with its applied window as rows, the flagship
+    with the state box |x| <= 1.05 over the horizon. Each run's warm
+    ms/step and quality beside the box formulation of the same config
+    (kernel route); the gap is not gated: fixed-iteration ADMM on two
+    splittings gives other iterates."""
+    from koopmanx_torch.configs import flagship_config, tank_bench_config
+
+    def tank(backend, general):
+        cfg = tank_bench_config(steps=GENERAL_STEPS, qp_backend=backend)
+        if general:
+            cfg.mpc.applied_bounds = "rows"
+        return config_loop(cfg, device, x0_range=(0.0, 2.0))
+
+    def flagship(backend, general):
+        cfg = flagship_config(steps=GENERAL_STEPS, horizon=HORIZON,
+                              qp_backend=backend)
+        if general:
+            cfg.mpc.state_bounds = STATE_BOX
+        return config_loop(cfg, device)
+
+    def flagship_check(carry, log, name, steps):
+        check_loop(carry, log, name, steps)
+        return {"u_abs_max": float(log.u.abs().max())}
+
+    report = {}
+    for name, make, check, qual in (
+            ("tank, applied window as rows", tank, check_tank_loop,
+             quality_x2),
+            ("flagship, state box", flagship, flagship_check, quality)):
+        runs = {}
+        for label, backend, general in (("general, pallas", "pallas", True),
+                                        ("general, xla", "xla", True),
+                                        ("box formulation, pallas",
+                                         "pallas", False)):
+            run = make(backend, general)
+            zero_counts()
+            (carry, log), cold = timed(run)
+            counts = read_counts()
+            if general and any(counts.values()):
+                fail(f"phase 12 {name} ({label}) launched {counts}")
+            bounds = check(carry, log, f"phase 12 {name} ({label})",
+                           GENERAL_STEPS)
+            _, warm = timed(run)
+            mse, sse = qual(log, tail=20)
+            runs[label] = {"launches": counts,
+                           "ms_per_step": warm / GENERAL_STEPS * 1e3,
+                           "ms_per_step_cold": cold / GENERAL_STEPS * 1e3,
+                           "mse": mse, "sse_last20": sse, **bounds}
+        report[name] = runs
+    print("phase 12 general-inequality path " + json.dumps(
+        {"batch": BATCH, "steps": GENERAL_STEPS, "state_box": STATE_BOX,
+         **report, "card": card}), flush=True)
 
 
 def main() -> int:
@@ -1349,13 +1608,20 @@ def main() -> int:
     rbf_counts, rbf_report = phase_rbf128(device, card)
     rff_counts, bf16_counts = phase_rff_and_bf16(device, rbf_report)
     print(f"phases 9-10: {time.perf_counter() - t9:.1f} s", flush=True)
+
+    # ---- 11. tank_mimo (B1 at nx = 40); 12. the general-inequality path ----
+    t11 = time.perf_counter()
+    mimo_counts = phase_tank_mimo(device, card)
+    phase_general(device, card)
+    print(f"phases 11-12: {time.perf_counter() - t11:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
         "tank (phase 7)": tank_counts["box_admm"],
         "duffing preset (phase 8)": preset_counts["box_admm"],
         "rbf128 bench (phase 9)": rbf_counts["box_admm"],
         "duffing_rff preset (phase 10)": rff_counts["box_admm"],
-        "rbf128 bench, bf16 ring (phase 10)": bf16_counts["box_admm"]}
+        "rbf128 bench, bf16 ring (phase 10)": bf16_counts["box_admm"],
+        "tank_mimo bench (phase 11)": mimo_counts["box_admm"]}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

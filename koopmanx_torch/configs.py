@@ -1,6 +1,7 @@
 """The configuration surface (a copy of ``koopmanx/configs.py:18-299``, the
 ``duffing_rbf``/``duffing_rff`` presets at :365-413, ``tank3`` at
-:416-452, ``pendulum`` at :485-515 and ``duffing_rbf128`` at :517-547).
+:416-452, ``tank_mimo`` at :454-482, ``pendulum`` at :485-515 and
+``duffing_rbf128`` at :517-547).
 
 The port keeps its own copy of the dataclasses so that it imports nothing
 of ``koopmanx``. Field names and defaults are the JAX package's; fields of
@@ -207,6 +208,31 @@ def tank3_preset() -> RunConfig:
     )
 
 
+def tank_mimo_preset() -> RunConfig:
+    """Two-pump cascaded tanks (the one multi-input plant, m = 2): tank 2's
+    level tracked with both pumps under a per-channel +-4 input box, so the
+    QP has N*m = 40 decisions against N*py = 20 outputs; the tank recipe
+    otherwise, with the window refit every step (the JAX package measured
+    cadence 8 worse here: a stale (nlift, 2) B misallocates the pumps)."""
+    return RunConfig(
+        system="tank_mimo",
+        steps=3000,
+        switch_step=100,
+        mpc=MPCConfig(
+            horizon=20, q_weight=10.0, r_weight=1e-3, u_min=-4.0, u_max=4.0,
+            cy_index=1,
+        ),
+        update=UpdateConfig(
+            mode="windowed", window=256, ridge=3e-2, c_pairing="same",
+        ),
+        lift=LiftConfig(
+            kind="rbf", nlift=10, rbf_type="thinplate", rbf_centers="random",
+            normalize=True,
+        ),
+        data=DataConfig(u_range=(-4.0, 4.0), clamp_x0=True),
+    )
+
+
 def pendulum_preset() -> RunConfig:
     """Damped torque-driven pendulum tracking x1 = 1 rad (steady torque
     a*sin(1)/k, 3.37 nominal and 5.05 after the mass switch at step 1000,
@@ -287,6 +313,7 @@ PRESETS = {
     "duffing_rff": duffing_rff_preset,
     "tank": tank_preset,
     "tank3": tank3_preset,
+    "tank_mimo": tank_mimo_preset,
     "pendulum": pendulum_preset,
 }
 
@@ -336,6 +363,26 @@ def rbf128_bench_config(steps: int = 200, qp_backend: str = "pallas"
     and the Woodbury estimator are the preset's. The bench samples its
     8192 scenarios with x0 ~ U[-2, 2]^2 and param_scale 0.15."""
     cfg = duffing_rbf128_preset()
+    cfg.steps = steps
+    cfg.dtype = "float32"
+    cfg.mpc.horizon = 20
+    cfg.mpc.qp_backend = qp_backend
+    cfg.switch_step = steps // 2
+    cfg.data = dataclasses.replace(cfg.data, n_step=50, n_traj=50)
+    return cfg
+
+
+def tank_mimo_bench_config(steps: int = 200, qp_backend: str = "pallas"
+                           ) -> RunConfig:
+    """``tank_mimo_preset`` with ``bench.py``'s overrides
+    (``BENCH_PRESET=tank_mimo``, ``bench.py:47-110``): f32, horizon 20,
+    the plant switch at ``steps // 2`` and 50x50 data with the preset's
+    ``u_range`` and ``clamp_x0``; the window of 256 refit every step, as
+    the preset has it. The bench samples its 8192 scenarios with x0 ~
+    U[0, 2]^2 and param_scale 0.15. ``qp_backend='pallas'`` inverts the
+    dense 40 x 40 KKT and runs the box-ADMM kernel; ``'xla'`` builds the
+    output-space (low-rank) inverse and runs the plain ADMM."""
+    cfg = tank_mimo_preset()
     cfg.steps = steps
     cfg.dtype = "float32"
     cfg.mpc.horizon = 20

@@ -1,7 +1,7 @@
 """Condensed (dense) MPC QP construction (counterpart of
 ``koopmanx/control/condensed.py``: ``prediction_matrices`` :53-93 with the
 'dag' :223-246 and 'scan' :37-50 builds, ``augment_delta_u`` :96-112,
-``weight_bar`` :115-123 and the box case of ``condensed_qp`` :126-170).
+``weight_bar`` :115-123 and ``condensed_qp`` :126-170, box and general).
 
 All functions take a leading scenario axis (models (B, N, N) etc.).
 
@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
-from ..types import LinearModel
+from ..types import LinearModel, QPData
 
 
 class PredictionMatrices(NamedTuple):
@@ -119,11 +119,18 @@ def weight_bar(q_block: Tensor, horizon: int) -> Tensor:
 
 
 def condensed_qp(pred: PredictionMatrices, z0: Tensor, yr: Tensor,
-                 qbar: Tensor, rbar: Tensor, u_min: Tensor, u_max: Tensor
-                 ) -> BoxQP:
-    """The box case of ``condensed_qp``: H = F2' Qbar F2 + Rbar,
-    symmetrized (Tank_System.m:152-153); P = 2H; q = 2 F2' Qbar (F1 z0 - yr).
-    ``z0`` (..., nz), ``yr`` (..., N*py), bounds (..., N*m)."""
+                 qbar: Tensor, rbar: Tensor, u_min: Tensor, u_max: Tensor,
+                 a_ineq: Optional[Tensor] = None,
+                 l_ineq: Optional[Tensor] = None,
+                 u_ineq: Optional[Tensor] = None):
+    """The condensed QP: H = F2' Qbar F2 + Rbar, symmetrized
+    (Tank_System.m:152-153); P = 2H; q = 2 F2' Qbar (F1 z0 - yr).
+    ``z0`` (..., nz), ``yr`` (..., N*py), bounds (..., N*m).
+
+    Without ``a_ineq`` it is the box QP (:class:`BoxQP`, A = I). With
+    extra rows ``l_ineq <= a_ineq x <= u_ineq`` it is the general
+    :class:`QPData` whose A stacks the identity rows first, then
+    ``a_ineq``; A keeps a batch axis only where ``a_ineq`` has one."""
     f1, f2 = pred
     f2t = f2.transpose(-1, -2)
     h = (f2t @ qbar) @ f2 + rbar
@@ -133,4 +140,10 @@ def condensed_qp(pred: PredictionMatrices, z0: Tensor, yr: Tensor,
     nx = f2.shape[-1]
     lo = u_min.expand(f2.shape[:-2] + (nx,))
     hi = u_max.expand(f2.shape[:-2] + (nx,))
-    return BoxQP(P=2.0 * h, q=q, l=lo, u=hi)
+    if a_ineq is None:
+        return BoxQP(P=2.0 * h, q=q, l=lo, u=hi)
+    eye = torch.eye(nx, dtype=f2.dtype, device=f2.device)
+    batch = a_ineq.shape[:-2]
+    a = torch.cat([eye.expand(batch + (nx, nx)), a_ineq], dim=-2)
+    return QPData(P=2.0 * h, q=q, A=a, l=torch.cat([lo, l_ineq], dim=-1),
+                  u=torch.cat([hi, u_ineq], dim=-1))

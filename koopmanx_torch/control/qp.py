@@ -10,9 +10,10 @@ The box functions take a leading scenario axis: p (B, nx, nx), vectors
 (B, nx); :func:`solve_qp` takes any leading axes, none included. The KKT
 matrix (``P + (sigma + rho) I``, or ``P + sigma I + rho A'A`` in general)
 is inverted once per call (``ops/linalg.spd_inverse`` at ``kkt_block``, on
-every route), then a fixed number of ADMM iterations runs, as plain tensor
-ops or, for the box path, in the CUDA kernel
-(:func:`solve_box_qp_batch_kernel`). The bf16 KKT inverse (JAX's
+every route; the plain box path also takes the caller's inverse, as the
+engine's output-space construction gives it), then a fixed number of ADMM
+iterations runs, as plain tensor ops or, for the box path, in the CUDA
+kernel (:func:`solve_box_qp_batch_kernel`). The bf16 KKT inverse (JAX's
 ``kkt_bf16``) is not ported (ROADMAP L3); the engine refuses it.
 """
 from __future__ import annotations
@@ -104,11 +105,12 @@ def solve_qp_batch(qp: QPData, cfg: ADMMConfig = ADMMConfig(),
     return solve_qp(qp, cfg, x0, y0)
 
 
-def _solve(admm, p, q, lo, hi, cfg: ADMMConfig, x0, y0):
+def _solve(admm, p, q, lo, hi, cfg: ADMMConfig, x0, y0, kkt_inv=None):
     x0 = torch.zeros_like(q) if x0 is None else x0
     y0 = torch.zeros_like(q) if y0 is None else y0
     rho = _effective_rho(p, cfg)
-    kkt_inv = spd_inverse(box_kkt(p, cfg), block=cfg.kkt_block)
+    if kkt_inv is None:
+        kkt_inv = spd_inverse(box_kkt(p, cfg), block=cfg.kkt_block)
     out = admm(kkt_inv, q, lo, hi, x0, y0, rho, iters=cfg.iters,
                sigma=cfg.sigma, alpha=cfg.alpha)
     primal = (out.xt - torch.clamp(out.xt, lo, hi)).abs().amax(-1)
@@ -125,10 +127,13 @@ def _solve(admm, p, q, lo, hi, cfg: ADMMConfig, x0, y0):
 
 def solve_box_qp(p: Tensor, q: Tensor, lo: Tensor, hi: Tensor,
                  cfg: ADMMConfig = ADMMConfig(), x0: Optional[Tensor] = None,
-                 y0: Optional[Tensor] = None) -> QPSolution:
+                 y0: Optional[Tensor] = None,
+                 kkt_inv: Optional[Tensor] = None) -> QPSolution:
     """Box-constrained ADMM (A = I) as plain batched tensor ops: the
-    counterpart of ``vmap(koopmanx.control.qp.solve_box_qp)``."""
-    return _solve(box_admm_reference, p, q, lo, hi, cfg, x0, y0)
+    counterpart of ``vmap(koopmanx.control.qp.solve_box_qp)``.
+    ``kkt_inv``: the caller's inverse of :func:`box_kkt` (rho is still
+    computed from ``p``); None inverts here."""
+    return _solve(box_admm_reference, p, q, lo, hi, cfg, x0, y0, kkt_inv)
 
 
 def solve_box_qp_batch_kernel(p: Tensor, q: Tensor, lo: Tensor, hi: Tensor,
@@ -147,11 +152,12 @@ def solve_box_qp_batch_kernel(p: Tensor, q: Tensor, lo: Tensor, hi: Tensor,
 def make_box_qp_solver(cfg: ADMMConfig, backend: str = "xla"):
     """``solve(p, q, lo, hi, x0, y0)`` for a scenario batch: 'pallas'
     (the name kept from the JAX config) is the kernel route, 'xla' the
-    plain one."""
+    plain one, which also takes a ``kkt_inv`` (JAX's ``solve_plain``;
+    the kernel route inverts for itself, as JAX's Pallas route does)."""
     if backend == "pallas":
         return lambda p, q, lo, hi, x0, y0: solve_box_qp_batch_kernel(
             p, q, lo, hi, cfg, x0, y0)
     if backend == "xla":
-        return lambda p, q, lo, hi, x0, y0: solve_box_qp(
-            p, q, lo, hi, cfg, x0, y0)
+        return lambda p, q, lo, hi, x0, y0, kkt_inv=None: solve_box_qp(
+            p, q, lo, hi, cfg, x0, y0, kkt_inv)
     raise ValueError(f"unknown qp_backend {backend!r}")

@@ -1,13 +1,18 @@
 """The per-step MPC body (counterpart of ``koopmanx/engine/core.py``).
 
-The port has the box path of ``make_control_solver`` (:383-729) with the
-du formulation (:423-425), the applied-input window folded into the first
-decision block's bounds (``applied_bounds='box'``, :519-584), the dither
-probe and the du accumulator (:686-704); the ``rls_sqrt`` and
-``windowed`` branches of ``make_estimator_update`` (the Woodbury lane,
-:922-938, and the refit from the ring buffers, :939-981) with the model
-guard (:988-1008) applied per scenario; and ``change_reset``
-(:1015-1047). Every function takes a
+The port has ``make_control_solver`` (:383-729) for the MPC controller
+without terminal synthesis: the du formulation (:423-425); the
+applied-input window folded into the first decision block's bounds
+(``applied_bounds='box'``, :519-584) or as explicit rows
+(``applied_bounds='rows'``, :519-539); the state-box rows through F1/F2
+(``state_bounds``, :540-556), which send the step to the
+general-inequality ADMM (``solve_qp``, :668-676); on the box path the
+output-space (low-rank) KKT inverse for py < m on the plain route
+(:596-666); the dither probe and the du accumulator (:686-704);
+``dual_dim`` (:854-864); the ``rls_sqrt`` and ``windowed`` branches of
+``make_estimator_update`` (the Woodbury lane, :922-938, and the refit
+from the ring buffers, :939-981) with the model guard (:988-1008) applied
+per scenario; and ``change_reset`` (:1015-1047). Every function takes a
 leading scenario axis where the JAX package was ``vmap``-ed, and the step
 index is a Python int, so each ``lax.cond`` on it is a plain branch.
 Options of paths not ported yet raise ``NotImplementedError`` naming their
@@ -28,7 +33,12 @@ from ..control.condensed import (
     prediction_matrices,
     weight_bar,
 )
-from ..control.qp import ADMMConfig, make_box_qp_solver
+from ..control.qp import (
+    ADMMConfig,
+    _effective_rho,
+    make_box_qp_solver,
+    solve_qp,
+)
 from ..edmd.rls import sqrt_rls_model, sqrt_rls_update_ab, sqrt_rls_update_c
 from ..edmd.windowed import (
     WindowState,
@@ -39,6 +49,7 @@ from ..edmd.windowed import (
     window_update_carry,
 )
 from ..lifts.base import Dictionary
+from ..ops.linalg import spd_inverse
 from ..types import LinearModel, QPSolution
 
 
@@ -53,6 +64,8 @@ class MPCParams(NamedTuple):
     cy: Optional[Tensor] = None  # (py, p) output selector; None = track C z
     applied_min: Optional[Tensor] = None  # (m,) du mode: bounds on u itself
     applied_max: Optional[Tensor] = None
+    x_min: Optional[Tensor] = None  # (N*py,) stacked state box (Revise_2)
+    x_max: Optional[Tensor] = None
     ref_state: Optional[Tensor] = None  # (n,) state-space reference anchor
 
 
@@ -68,6 +81,7 @@ class EngineConfig:
     controller: str = "mpc"
     delta_u: bool = False
     applied_bounds: str = "box"  # 'box' folds the applied window into du_0's
+    # bounds; 'rows' keeps it as m explicit inequality rows
     track_lifted: bool = False
     update: str = "rls"
     c_pairing: str = "next"  # 'next' (duffing.py:943) | 'same'
@@ -125,11 +139,8 @@ def check_supported(cfg: EngineConfig) -> None:
     """Refuse the options whose paths the port has not reached yet."""
     todo = [
         (cfg.controller != "mpc", "controller='lqr'", "item 15"),
-        (cfg.delta_u and cfg.applied_bounds != "box",
-         f"applied_bounds={cfg.applied_bounds!r}", "item 12"),
         (cfg.track_lifted, "track_lifted", "item 13"),
         (cfg.terminal_synthesis, "terminal_synthesis", "item 14"),
-        (cfg.state_bounds, "state_bounds", "item 12"),
         (cfg.update not in ("rls_sqrt", "windowed", "off"),
          f"update={cfg.update!r}", "item 13"),
         (cfg.qp_kkt_refine > 0, "qp_kkt_refine (carried KKT inverse)",
@@ -146,6 +157,8 @@ def check_supported(cfg: EngineConfig) -> None:
             )
     if cfg.qp_warm_start not in ("primal", "full", "off"):
         raise ValueError(f"unknown qp_warm_start {cfg.qp_warm_start!r}")
+    if cfg.applied_bounds not in ("box", "rows"):
+        raise ValueError(f"unknown applied_bounds {cfg.applied_bounds!r}")
 
 
 def _tree_finite(leaves) -> Tensor:
@@ -190,16 +203,67 @@ def _select(pred: Tensor, new, old):
 class ControlDecision(NamedTuple):
     u_applied: Tensor  # (B, m)
     warm_x: Tensor  # (B, N*m) shifted, sanitized primal warm start
-    sol: QPSolution
+    sol: QPSolution  # sol.y is (B, dual_dim)
     r_window: Tensor  # (horizon, py)
+
+
+def lowrank_kkt_inverse(f2: Tensor, p: Tensor, q_block: Tensor,
+                        r_block: Tensor, cfg: EngineConfig) -> Tensor:
+    """The inverse of the box KKT matrix ``P + (sigma + rho(P)) I`` in
+    output space (``core.py:633-664``), for N*py < N*m. With
+    D = 2 Rbar + (sigma + rho) I and Qt = 2 Qbar, both block diagonal,
+    KKT = D + F2' Qt F2, so by Woodbury
+      KKT^-1 = D^-1 - (F2 D^-1)' S^-1 (F2 D^-1),  S = Qt^-1 + F2 D^-1 F2'
+    and only the (N*py, N*py) S is eliminated (at ``qp_kkt_block``); the
+    (m, m) and (py, py) blocks at block 1. ``p`` is the QP's symmetrized P,
+    from which rho is taken as the box solver takes it. Full float32: the
+    entry points pin TF32 off (``device.resolve_device``), as the JAX
+    package pins "highest" here. Batched: f2 (B, N*py, N*m), p (B, N*m,
+    N*m), blocks (B, k, k)."""
+    horizon, m = cfg.horizon, r_block.shape[-1]
+    batch, n_out = f2.shape[:-2], f2.shape[-2]
+    qp_cfg = cfg.qp_config
+    rho = _effective_rho(p, qp_cfg)
+    eye = torch.eye(m, dtype=p.dtype, device=p.device)
+    d_inv = spd_inverse(2.0 * r_block
+                        + (qp_cfg.sigma + rho)[..., None, None] * eye)
+    f2d = (f2.reshape(batch + (n_out, horizon, m)) @ d_inv.unsqueeze(-3)
+           ).reshape(f2.shape)
+    s = (block_diag_repeat(spd_inverse(2.0 * q_block), horizon)
+         + f2d @ f2.transpose(-1, -2))
+    s_inv = spd_inverse(s, block=cfg.qp_kkt_block)
+    f2dt = f2d.transpose(-1, -2)
+    kkt_inv = block_diag_repeat(d_inv, horizon) - f2dt @ (s_inv @ f2d)
+    return 0.5 * (kkt_inv + kkt_inv.transpose(-1, -2))
+
+
+def _has_applied_rows(cfg: EngineConfig, params: MPCParams) -> bool:
+    return (cfg.delta_u and params.applied_min is not None
+            and cfg.applied_bounds == "rows")
+
+
+def _has_state_rows(cfg: EngineConfig, params: MPCParams) -> bool:
+    return cfg.state_bounds and params.x_min is not None
+
+
+def dual_dim(cfg: EngineConfig, params: MPCParams, m: int) -> int:
+    """The QP's constraint rows, the size of the 'full' dual warm start
+    (``core.py:854-864``): N*m box rows, m applied-window rows under
+    ``applied_bounds='rows'``, N*py state rows under ``state_bounds``."""
+    nc = cfg.horizon * m
+    if _has_applied_rows(cfg, params):
+        nc += m
+    if _has_state_rows(cfg, params):
+        nc += params.x_min.shape[-1]
+    return nc
 
 
 def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
                         m: int):
     """Model -> applied input for a batch of scenarios: condensed QP build
-    (``duffing.py:756-800``, ``Tank_System.m:118-158``), box ADMM,
-    projection, the du accumulator (``Tank_System.m:192``) and the warm
-    shift."""
+    (``duffing.py:756-800``, ``Tank_System.m:118-158``), box ADMM (or the
+    general-inequality ADMM when rows are added), projection, the du
+    accumulator (``Tank_System.m:192``) and the warm shift."""
     check_supported(cfg)
     horizon = cfg.horizon
     qp_cfg = cfg.qp_config
@@ -226,16 +290,25 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             ))
         r_window = ref_fn(step)  # (horizon, py)
         yr = r_window.reshape(-1)
-        n_out = pred.f2.shape[-2]  # N*py
-        if cfg.qp_kkt_lowrank and cfg.qp_backend == "xla" and n_out < horizon * m:
-            raise NotImplementedError(
-                "the output-space (low-rank) KKT for py < m is not ported "
-                "yet (ROADMAP queue A, item 12)"
-            )
+        # extra inequality rows: the applied window on du_0 ('rows'; one
+        # selector [I_m 0] shared by every scenario), the state box on the
+        # prediction F1 z + F2 x (F2 per scenario)
+        a_rows, l_rows, u_rows = [], [], []
+        if _has_applied_rows(cfg, params):
+            a_rows.append(torch.eye(m, horizon * m, dtype=z.dtype,
+                                    device=z.device))
+            l_rows.append(params.applied_min - u_prev)
+            u_rows.append(params.applied_max - u_prev)
+        if _has_state_rows(cfg, params):
+            f1z = (pred.f1 @ z_qp.unsqueeze(-1)).squeeze(-1)
+            a_rows.append(pred.f2)
+            l_rows.append(params.x_min - f1z)
+            u_rows.append(params.x_max - f1z)
         # per-channel bounds (m,) tiled over the horizon
         lo, hi = (v.repeat((1,) * (v.dim() - 1) + (horizon,))
                   for v in (params.u_min, params.u_max))
-        if cfg.delta_u and params.applied_min is not None:
+        if (cfg.delta_u and params.applied_min is not None
+                and cfg.applied_bounds == "box"):
             # the applied-input window constrains du_0 alone: intersect it
             # with du_0's box (applied_bounds='box'); the minimum guards an
             # empty intersection. Each scenario gets its own first bounds.
@@ -244,11 +317,34 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             lo0 = torch.minimum(lo0, hi0)
             lo = torch.cat([lo0, lo[..., m:]], dim=-1)
             hi = torch.cat([hi0, hi[..., m:]], dim=-1)
-        qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi)
-        zeros_x = torch.zeros_like(qp.q)
-        x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else zeros_x
-        y0 = warm_y if cfg.qp_warm_start == "full" else zeros_x
-        sol = box_solver(qp.P, qp.q, qp.l, qp.u, x0, y0)
+        if a_rows:
+            # the general-inequality ADMM, on every route (the kernel
+            # serves the box path only, as in the JAX package); A keeps a
+            # batch axis only where a block has one
+            batch = torch.broadcast_shapes(*(a.shape[:-2] for a in a_rows))
+            a_ineq = torch.cat([a.expand(batch + a.shape[-2:])
+                                for a in a_rows], dim=-2)
+            qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi, a_ineq,
+                              torch.cat(l_rows, dim=-1),
+                              torch.cat(u_rows, dim=-1))
+            x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else None
+            y0 = warm_y if cfg.qp_warm_start == "full" else None
+            sol = solve_qp(qp, qp_cfg, x0=x0, y0=y0)
+        else:
+            qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi)
+            zeros_x = torch.zeros_like(qp.q)
+            x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else zeros_x
+            y0 = warm_y if cfg.qp_warm_start == "full" else zeros_x
+            n_out = pred.f2.shape[-2]  # N*py
+            if (cfg.qp_kkt_lowrank and cfg.qp_kkt_refine == 0
+                    and cfg.qp_backend == "xla"
+                    and not cfg.terminal_synthesis
+                    and n_out < horizon * m):
+                kkt_inv = lowrank_kkt_inverse(pred.f2, qp.P, params.q_block,
+                                              params.r_block, cfg)
+                sol = box_solver(qp.P, qp.q, qp.l, qp.u, x0, y0, kkt_inv)
+            else:
+                sol = box_solver(qp.P, qp.q, qp.l, qp.u, x0, y0)
         # exact projection of the first move; a non-finite solve applies 0
         first_move = torch.clamp(
             torch.nan_to_num(sol.x[..., :m], nan=0.0, posinf=0.0, neginf=0.0),

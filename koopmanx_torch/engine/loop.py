@@ -23,6 +23,7 @@ from .core import (
     EngineConfig,
     MPCParams,
     change_reset,
+    dual_dim,
     make_control_solver,
     make_estimator_update,
 )
@@ -37,7 +38,7 @@ class LoopCarry(NamedTuple):
     model: LinearModel
     rls: Any  # SqrtRLSState or WindowState
     warm_x: Tensor  # (B, N*m) QP primal warm start
-    warm_y: Any  # (B, N*m) QP dual warm start under qp_warm_start='full'
+    warm_y: Any  # (B, dual_dim) QP dual warm start under qp_warm_start='full'
     res_ema: Tensor  # (B,) running residual average (change detection)
 
 
@@ -124,15 +125,15 @@ def make_closed_loop(system: System, dictionary: Dictionary,
         th1 = as_params(system.theta1 if theta1 is None else theta1, dtype, dev)
         theta_sched = make_switch_schedule(th0, th1, cfg.switch_step)
         batch = x0.shape[0]
-        n_dec = cfg.horizon * m
-        warm = torch.zeros((batch, n_dec), dtype=dtype, device=dev)
+        zeros = lambda k: torch.zeros((batch, k), dtype=dtype, device=dev)
         carry = LoopCarry(
             x=x0,
-            u_applied=torch.zeros((batch, m), dtype=dtype, device=dev),
+            u_applied=zeros(m),
             model=model0,
             rls=rls0,
-            warm_x=warm,
-            warm_y=warm if cfg.qp_warm_start == "full" else (),
+            warm_x=zeros(cfg.horizon * m),
+            warm_y=(zeros(dual_dim(cfg, params, m))
+                    if cfg.qp_warm_start == "full" else ()),
             res_ema=torch.zeros((batch,), dtype=dtype, device=dev),
         )
         logs = []

@@ -134,7 +134,8 @@ def _reference_state(cfg: C.RunConfig, n: int, dtype, device=None) -> Tensor:
 def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
     """Output weight on the tracked outputs (every state, or one channel
     with ``cy_index``), input weight and box; in du mode the box is du's
-    and ``applied_min``/``applied_max`` bound the applied input."""
+    and ``applied_min``/``applied_max`` bound the applied input;
+    ``state_bounds`` becomes the stacked (N*py,) ``x_min``/``x_max``."""
     mc = cfg.mpc
     kw = dict(dtype=torch_dtype(cfg.dtype), device=device)
     if mc.cy_index is not None:
@@ -149,6 +150,10 @@ def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
         applied = (mc.applied_min, mc.applied_max)
     else:
         box, applied = (mc.u_min, mc.u_max), (None, None)
+    x_box = (None, None)
+    if mc.state_bounds is not None:
+        x_box = tuple(torch.full((mc.horizon * py,), v, **kw)
+                      for v in mc.state_bounds)
     return MPCParams(
         q_block=mc.q_weight * torch.eye(py, **kw),
         r_block=mc.r_weight * torch.eye(system.m, **kw),
@@ -157,6 +162,8 @@ def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
         cy=cy,
         applied_min=full(applied[0]),
         applied_max=full(applied[1]),
+        x_min=x_box[0],
+        x_max=x_box[1],
         ref_state=_reference_state(cfg, system.n, kw["dtype"], device),
     )
 
@@ -164,10 +171,9 @@ def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
 def engine_config(cfg: C.RunConfig) -> EngineConfig:
     """Translate a RunConfig into the static EngineConfig."""
     uc, mc = cfg.update, cfg.mpc
-    if mc.state_bounds is not None or uc.warm_start_from_batch:
+    if uc.warm_start_from_batch:
         raise NotImplementedError(
-            "state_bounds / warm_start_from_batch are not ported yet "
-            "(ROADMAP queue A, item 12 and L4)"
+            "warm_start_from_batch is not ported yet (ROADMAP queue A, L4)"
         )
     ecfg = EngineConfig(
         controller=mc.controller,
@@ -202,6 +208,7 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
         qp_kkt_refine=mc.qp_kkt_refine,
         qp_backend=mc.qp_backend,
         terminal_synthesis=mc.terminal_synthesis,
+        state_bounds=mc.state_bounds is not None,
     )
     check_supported(ecfg)
     return ecfg

@@ -1,7 +1,8 @@
 """Plant library (counterpart of ``koopmanx/systems/library.py``).
 
 The port has the Duffing oscillator, the cascaded tanks (two and three
-stages, exact discrete maps clamped at x >= 0) and the damped pendulum;
+stages, and the two-pump tank_mimo: exact discrete maps clamped at
+x >= 0) and the damped pendulum;
 the other plants of the JAX registry raise ``NotImplementedError`` naming
 the ROADMAP item.
 """
@@ -111,6 +112,40 @@ TANK3 = System(
 )
 
 
+class TankMimoParams(NamedTuple):
+    """Two-pump cascaded tanks, the registry's one multi-input plant
+    (m = 2): the two-tank map with a second pump feeding tank 2,
+    x1+ = x1 - c1*sqrt(x1) + c2*u1 ;
+    x2+ = x2 + c3*sqrt(x1) - c4*sqrt(x2) + c5*u2."""
+
+    c1: Tensor
+    c2: Tensor
+    c3: Tensor
+    c4: Tensor
+    c5: Tensor
+
+
+def _tank_mimo_step(x: Tensor, u: Tensor, th: TankMimoParams) -> Tensor:
+    s1, s2 = _sqrt_level(x[..., 0]), _sqrt_level(x[..., 1])
+    return torch.stack([x[..., 0] - th.c1 * s1 + th.c2 * u[..., 0],
+                        x[..., 1] + th.c3 * s1 - th.c4 * s2
+                        + th.c5 * u[..., 1]], dim=-1)
+
+
+# x_init stays the default -2.0: the JAX package starts only tank and
+# tank3 at 0 (koopmanx/run.py:396-399)
+TANK_MIMO = System(
+    name="tank_mimo",
+    n=2,
+    m=2,
+    step_map=_tank_mimo_step,
+    discrete=True,
+    theta0=TankMimoParams(c1=0.5, c2=0.4, c3=0.2, c4=0.3, c5=0.25),
+    theta1=TankMimoParams(c1=0.53, c2=0.3, c3=0.1, c4=0.35, c5=0.2),
+    clamp=_clamp_nonneg,
+)
+
+
 class PendulumParams(NamedTuple):
     """x1' = x2 ; x2' = -a*sin(x1) - b*x2 + k*u (a = g/l, b the damping
     rate, k the torque gain; the switch grows the payload mass 50 %)."""
@@ -136,12 +171,11 @@ PENDULUM = System(
     theta1=PendulumParams(a=4.0, b=1.0 / 3.0, k=2.0 / 3.0),
 )
 
-REGISTRY = {s.name: s for s in (DUFFING, TANK, TANK3, PENDULUM)}
+REGISTRY = {s.name: s for s in (DUFFING, TANK, TANK3, TANK_MIMO, PENDULUM)}
 
 # plants of the JAX registry that later slices port (ROADMAP queue A)
 _NOT_PORTED = {
     "vanderpol": "item 13 (VDP and the remaining estimators)",
-    "tank_mimo": "item 12 (tank_mimo)",
     "toy1d": "item 14 (terminal synthesis, Revise_2 presets)",
     "approach3": "item 18 (training)",
 }

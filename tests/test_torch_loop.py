@@ -224,14 +224,15 @@ def test_build_pipeline_runs_the_flagship_loop_small_on_cpu():
 
 def test_unported_options_raise():
     """The options of later slices raise, naming their ROADMAP item: the
-    storage-method update (item 13), the polynomial and identity lifts
-    (L7), the explicit applied-window rows (item 12). The Woodbury lane, a
-    compressed ring, k-means centers and Fourier lifts (item 11) are
-    ported (tests/test_torch_rbf128.py)."""
+    storage-method update and lifted tracking (item 13), the polynomial
+    and identity lifts (L7). The Woodbury lane, a compressed ring, k-means
+    centers and Fourier lifts (item 11) are ported
+    (tests/test_torch_rbf128.py), and so are the explicit applied-window
+    rows and the state box (item 12, tests/test_torch_general_qp.py)."""
     cases = [("update", "mode", "storage", "item 13"),
              ("lift", "kind", "hermite", "L7"),
              ("lift", "kind", "identity", "L7"),
-             ("mpc", "applied_bounds", "rows", "item 12")]
+             ("mpc", "track_lifted", True, "item 13")]
     for part, field, value, item in cases:
         cfg = TC.tank_bench_config(steps=2)
         cfg.data = dataclasses.replace(cfg.data, n_step=5, n_traj=5)

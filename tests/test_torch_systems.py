@@ -92,7 +92,7 @@ def test_sample_scenarios_ranges():
 
 def test_unported_system_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlib.get_system("tank_mimo")
+        tlib.get_system("vanderpol")
 
 
 def test_entry_points_want_cuda_unless_asked_for_cpu():

@@ -15,8 +15,14 @@ to whole cadence cycles); ``--config rbf128`` the large-lift loop
 stages are the ring write, the Gram motion and Sherman-Morrison updates
 inside ``window_update_carry``, the Newton-Schulz polish, the model from
 the carried statistics, the finiteness sums, the per-scenario select, the
-prediction matrices and the model guard's spectral radius. For each
-regime it prints the top device kernels
+prediction matrices and the model guard's spectral radius; ``--config
+tank_mimo`` the two-pump loop (``configs.tank_mimo_bench_config``: m = 2,
+N*m = 40, the window refit every step), profiled on both routes as two
+regimes: ``pallas`` (the dense 40 x 40 ``spd_inverse``, then the
+box-ADMM kernel at nx = 40) and ``xla`` (the output-space construction
+``lowrank_kkt_inverse``, then the plain ADMM), each with the refit's
+Schulz chains and the ring write. For each regime it prints the top
+device kernels
 by time, then one JSON line: wall ms per step, device-busy ms per step (the
 union of the kernels' intervals), the device's idle share, kernel launches
 per step, the peak device memory of the unprofiled run, the box-ADMM kernel's share of busy time and device time per
@@ -28,7 +34,8 @@ by the steps each takes in the shipped preset's run (``tank_preset``) and
 in ``chip_smoke.py``'s phase 7. ``--out`` also writes the whole kernel
 tables to a file.
 
-    python3 tools/profile_torch_step.py [--config flagship|tank|rbf128]
+    python3 tools/profile_torch_step.py
+        [--config flagship|tank|rbf128|tank_mimo]
         [--steps 10]
         [--batch 8192] [--out FILE]
 """
@@ -52,7 +59,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--backend", default="pallas")
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "tank", "rbf128"))
+                    choices=("flagship", "tank", "rbf128", "tank_mimo"))
     ap.add_argument("--out", default=None, help="write the kernel table here")
     args = ap.parse_args()
 
@@ -65,6 +72,7 @@ def main() -> int:
         flagship_config,
         rbf128_bench_config,
         tank_bench_config,
+        tank_mimo_bench_config,
         tank_preset,
     )
     from koopmanx_torch.control import qp
@@ -85,7 +93,8 @@ def main() -> int:
                          (windowed, "_polished"),
                          (core, "window_model_carry"), (core, "_select"),
                          (core, "prediction_matrices"),
-                         (core, "_spectral_radius_estimate")):
+                         (core, "_spectral_radius_estimate"),
+                         (core, "lowrank_kkt_inverse")):
         stages[name] = 0.0
 
         def ranged(*a, _fn=getattr(module, name), _name=name, **kw):
@@ -94,18 +103,21 @@ def main() -> int:
 
         setattr(module, name, ranged)
 
-    def loop(steps, warmup_end=None):
+    def loop(steps, warmup_end, backend):
         if args.config == "tank":
-            cfg = tank_bench_config(steps=steps, qp_backend=args.backend)
+            cfg = tank_bench_config(steps=steps, qp_backend=backend)
             if warmup_end is not None:
                 cfg.update.window_filter_warmup = warmup_end
             x0_range = (0.0, 2.0)
+        elif args.config == "tank_mimo":
+            cfg = tank_mimo_bench_config(steps=steps, qp_backend=backend)
+            x0_range = (0.0, 2.0)
         elif args.config == "rbf128":
-            cfg = rbf128_bench_config(steps=steps, qp_backend=args.backend)
+            cfg = rbf128_bench_config(steps=steps, qp_backend=backend)
             x0_range = (-2.0, 2.0)
         else:
             cfg = flagship_config(steps=steps, horizon=20,
-                                  qp_backend=args.backend)
+                                  qp_backend=backend)
             x0_range = (-2.0, 2.0)
         pipe = build_pipeline(cfg)  # CUDA, or raises
         sc = sample_scenarios(get_system(cfg.system),
@@ -113,9 +125,9 @@ def main() -> int:
                               x0_range=x0_range, param_scale=0.15)
         return lambda: run_scenarios(pipe, sc)
 
-    def profile_regime(steps, warmup_end=None):
-        loop(args.warmup, warmup_end)()
-        run = loop(steps, warmup_end)
+    def profile_regime(steps, warmup_end, backend):
+        loop(args.warmup, warmup_end, backend)()
+        run = loop(steps, warmup_end, backend)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -179,22 +191,25 @@ def main() -> int:
 
     if args.config == "tank":
         every = tank_bench_config().update.window_refit_every
-        regimes = {"warm-up": (args.steps, None),
-                   "cadence": (-(-args.steps // every) * every, 0)}
+        regimes = {"warm-up": (args.steps, None, args.backend),
+                   "cadence": (-(-args.steps // every) * every, 0,
+                               args.backend)}
+    elif args.config == "tank_mimo":  # one regime a route
+        regimes = {b: (args.steps, None, b) for b in ("pallas", "xla")}
     else:
-        regimes = {"all": (args.steps, None)}
+        regimes = {"all": (args.steps, None, args.backend)}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     results, tables = {}, []
-    for regime, (steps, warmup_end) in regimes.items():
-        lines, result = profile_regime(steps, warmup_end)
+    for regime, (steps, warmup_end, backend) in regimes.items():
+        lines, result = profile_regime(steps, warmup_end, backend)
         results[regime] = result
         tables += [f"# {args.config}, {regime}"] + lines
         print("\n".join(lines[:26]))
         print(json.dumps({"config": args.config, "regime": regime,
-                          "backend": args.backend, "batch": args.batch,
+                          "backend": backend, "batch": args.batch,
                           **result, "card": card}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
