@@ -128,11 +128,36 @@ Phases, each of which fails the run on error:
    |u| <= 8 up to one f32 rounding) and the flagship with the state box
    |x| <= 1.05 over the horizon (|u| <= 2), each on both routes, with
    its warm ms/step and quality printed beside the box formulation of
-   the same config (not gated).
+   the same config (not gated);
+13. drive the Van der Pol lifted-tracking loop, the JAX package's
+   ``BENCH_PRESET=vanderpol`` workload (``koopmanx_torch.configs.
+   vdp_bench_config``: 8192 scenarios with x0 ~ U[-2, 2]^2, param_scale
+   0.15, the shipped encoder ``artifacts/vanderpol_kmae_encoder.mat``
+   normalized, nlift 8, the QP tracking the lifted reference with C = I,
+   N = 20, square-root RLS with 1e5 priors, f32; 200 steps, the switch at
+   step 100), through the kernel route and the plain route, counts zeroed
+   before each run and read after: 200 ``box_admm`` launches, then 0.
+   Gates: u finite and |u| <= 6, the model and the estimator finite in
+   every scenario, at most 2 % of the scenarios escaped (their x
+   non-finite: the plant's RK4 leaves its stability region past |x1| ~
+   2.4, in the JAX package too), kernel vs plain route over 16 float64
+   steps at 256 scenarios (each scenario and step within 1e-8 or ten times
+   the plain route's own one-ulp floor there), and the float32 batch-mean
+   control quality of x1 against r = [1, 0] over the scenarios finite on
+   both routes. Prints each route's ms/step, warm, in turns;
+14. drive the remaining estimators and references at 8192 scenarios for
+   60 steps through the kernel route, counts zeroed before each run and
+   read after: ``vdp_rbf_bench_config`` (the storage method: two batched
+   pseudo-inverses a step), the flagship with ``update='rls_chol'`` and
+   ``reset_mult=4``, the flagship with ``update='rls'`` in float64, and
+   the VDP bench with ``reference='sine'``. Gates: 60 launches each, u
+   finite within the preset's box, the model and estimator finite, x
+   finite but for scenarios escaped as in phase 13, and the float64 kernel
+   vs plain gate of phase 13 on each.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
-line, a tank_mimo timing JSON line, the card line
+line, a tank_mimo timing JSON line, a VDP JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -206,6 +231,24 @@ MIMO_STEPS, MIMO_U_MAX, MIMO_NX = 200, 4.0, 40
 # phase 12: the general-inequality path (the tank's applied window as
 # rows, the flagship's state box), a short run
 GENERAL_STEPS, STATE_BOX = 60, (-1.05, 1.05)
+# phase 13: the VDP lifted-tracking bench (vdp_bench_config), 200 steps (the
+# bench's own; the preset runs 10000), the switch at 100, |u| <= 6. The
+# plant's RK4 at h = 0.05 leaves its stability region where h |c| x1^2
+# passes ~2.8 (c = -10: |x1| > ~2.4), and a scenario the controller drives
+# there goes non-finite in the JAX package too (0.44 % of 2048 on the CPU,
+# f32, 200 steps); the guard must hold its model and estimator, and at most
+# ESCAPE_SHARE of the batch may escape
+VDP_STEPS, VDP_U_MAX, ESCAPE_SHARE = 200, 6.0, 0.02
+# phase 14: the estimators and references at full width, a short run
+ESTIMATOR_STEPS = 60
+# phases 13-14: kernel vs plain route over LOOP_EARLY_STEPS float64 steps
+# at EARLY_BATCH scenarios, each scenario and step held to EARLY_TOL or to
+# ten times the plain route's own divergence from one ulp of x0 (up or
+# down) there, where that is larger: from a 1e5 scratch-RLS prior and a
+# bang-bang first input the VDP loop moves by up to ~1e-2 in 16 float64
+# steps from one ulp of x0 (CPU rehearsal at B = 256), as the JAX
+# package's own loop does (tests/test_torch_vdp.py)
+EARLY_BATCH, EARLY_TOL = 256, 1e-8
 
 
 def fail(msg: str) -> None:
@@ -1135,9 +1178,10 @@ def phase_duffing_preset(device, flagship_quality):
 
 
 def config_loop(cfg, device, dtype: str = "float32",
-                x0_range=(-2.0, 2.0)):
+                x0_range=(-2.0, 2.0), batch: int = BATCH):
     """The loop of ``cfg`` as a thunk through the user entry points, over
-    the bench's scenarios (x0 ~ U[x0_range]^2, param_scale 0.15)."""
+    the bench's scenarios (x0 ~ U[x0_range]^2, param_scale 0.15); the
+    thunk takes another x0 for the same scenarios."""
     import torch
     from koopmanx_torch.engine.scenario import sample_scenarios
     from koopmanx_torch.run import build_pipeline, run_scenarios
@@ -1146,14 +1190,14 @@ def config_loop(cfg, device, dtype: str = "float32",
     cfg.dtype = dtype
     pipe = build_pipeline(cfg, device=device)
     sc = sample_scenarios(get_system(cfg.system),
-                          torch.Generator().manual_seed(0), BATCH,
+                          torch.Generator().manual_seed(0), batch,
                           x0_range=x0_range, param_scale=0.15,
                           dtype=getattr(torch, dtype), device=device)
 
-    def run():
-        return run_scenarios(pipe, sc)
+    def run(x0=None):
+        return run_scenarios(pipe, sc if x0 is None else sc._replace(x0=x0))
 
-    run.pipe = pipe
+    run.pipe, run.x0 = pipe, sc.x0
     return run
 
 
@@ -1465,6 +1509,233 @@ def phase_general(device, card: str):
          **report, "card": card}), flush=True)
 
 
+def early_f64_gate(make_cfg, device, name: str):
+    """Kernel vs plain route of ``make_cfg(backend, steps)`` over
+    LOOP_EARLY_STEPS float64 steps at EARLY_BATCH scenarios: each scenario
+    and step within EARLY_TOL, or within ten times the plain route's own
+    divergence from one ulp of x0 (up, then down) in that scenario up to
+    that step where that is larger. Returns the gate's report."""
+    import torch
+
+    logs, floors = {}, []
+    for backend in ("pallas", "xla"):
+        run = config_loop(make_cfg(backend, LOOP_EARLY_STEPS), device,
+                          "float64", batch=EARLY_BATCH)
+        logs[backend] = run()[1].x
+    for target in (9.0, -9.0):
+        x0 = torch.nextafter(run.x0, torch.full_like(run.x0, target))
+        floors.append((run(x0)[1].x - logs["xla"]).abs().amax(-1))
+    dx = (logs["pallas"] - logs["xla"]).abs().amax(-1)  # (B, T)
+    floor = torch.maximum(*floors).cummax(dim=1).values
+    bound = torch.clamp(10.0 * floor, min=EARLY_TOL)
+    tight = bound == EARLY_TOL
+    report = {"batch": EARLY_BATCH, "steps": LOOP_EARLY_STEPS,
+              "dx_f64": float(dx.max()), "floor_f64": float(floor.max()),
+              "tol": EARLY_TOL, "share_held_at_tol": float(
+                  tight.double().mean()),
+              "dx_f64_where_held_at_tol": float(dx[tight].max())
+              if bool(tight.any()) else None}
+    if not bool((dx <= bound).all()):
+        fail(f"{name}: float64 kernel and plain loops differ by more than "
+             f"max({EARLY_TOL}, 10 x the one-ulp floor): {report}")
+    return report
+
+
+def check_estimator_loop(carry, log, name: str, steps: int, u_max: float):
+    """u finite within the box, the final model and estimator finite in
+    every scenario (the guard holds an escaped scenario's), the shapes;
+    returns the scenarios whose x went non-finite and the largest
+    |x1| each reached before."""
+    import torch
+
+    if not bool(torch.isfinite(log.u).all()):
+        fail(f"{name}: non-finite u")
+    top = float(log.u.abs().max())
+    if top > u_max:
+        fail(f"{name}: |u| = {top} > {u_max}")
+    leaves = [carry.u_applied, carry.warm_x, *carry.model, *carry.rls]
+    if not all(bool(torch.isfinite(t).all()) for t in leaves):
+        fail(f"{name}: non-finite model or estimator state")
+    if tuple(log.x.shape[:2]) != (BATCH, steps):
+        fail(f"{name}: log.x shape {tuple(log.x.shape)}")
+    escaped = ~torch.isfinite(log.x).all(-1).all(-1)
+    x1 = torch.nan_to_num(log.x[escaped, :, 0].abs(), nan=0.0, posinf=0.0)
+    return escaped, x1.amax(-1).tolist() if x1.numel() else []
+
+
+def escape_report(escaped, x1_max, name: str):
+    share = float(escaped.float().mean())
+    if share > ESCAPE_SHARE:
+        fail(f"{name}: {int(escaped.sum())} of {BATCH} scenarios escaped "
+             f"(share {share} > {ESCAPE_SHARE})")
+    return {"escaped": int(escaped.sum()), "share": share,
+            "x1_abs_max_before_escape_min": min(x1_max, default=None)}
+
+
+def quality_on(log, keep, tail: int = 50):
+    """Batch-mean tracking MSE and steady-state error of x1 against r = 1
+    (the state reference's first channel) over the scenarios ``keep``."""
+    err = log.x[keep, :, 0] - 1.0
+    return float((err ** 2).mean()), float(err[:, -tail:].abs().mean())
+
+
+def phase_vdp(device, card: str):
+    """Phase 13: the VDP lifted-tracking bench through both routes, with
+    its gates. Returns the kernel route's launch counts."""
+    from koopmanx_torch.configs import vdp_bench_config
+    from koopmanx_torch.run import resolve_weights_path
+
+    runs, logs, escapes = {}, {}, {}
+    for backend in ("pallas", "xla"):
+        run = runs[backend] = config_loop(
+            vdp_bench_config(VDP_STEPS, backend), device)
+        zero_counts()
+        (carry, log), cold, mem = run_with_memory(run)
+        counts = read_counts()
+        want = VDP_STEPS if backend == "pallas" else 0
+        print(f"phase 13 vdp path ({backend}): {cold:.2f} s cold, launches "
+              f"{counts}, peak {mem / 2**30:.2f} GiB", flush=True)
+        if counts != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+            fail(f"the vdp {backend} route launched {counts} in {VDP_STEPS} "
+                 "steps")
+        if backend == "pallas":
+            counts_k, pipe = counts, run.pipe
+        escaped, x1_max = check_estimator_loop(carry, log, f"vdp {backend}",
+                                               VDP_STEPS, VDP_U_MAX)
+        escapes[backend] = {**escape_report(escaped, x1_max, f"vdp {backend}"),
+                            "cold_wall_s": cold, "peak_gib": mem / 2**30}
+        logs[backend] = (log, escaped)
+    nlift = pipe.dictionary.nlift
+    if pipe.params.q_block.shape[-1] != nlift or logs["pallas"][0].r.shape[
+            -1] != nlift:
+        fail("the vdp loop does not track the lifted reference")
+    early = early_f64_gate(
+        lambda backend, steps: vdp_bench_config(steps, backend), device,
+        "vdp")
+    keep = ~(logs["pallas"][1] | logs["xla"][1])
+    (mse_k, sse_k), (mse_p, sse_p) = (quality_on(logs[b][0], keep)
+                                      for b in ("pallas", "xla"))
+    gate = {"batch": BATCH, "nlift": nlift,
+            "weights": os.path.relpath(resolve_weights_path(
+                pipe.config.lift.weights_path, "vanderpol"), ROOT),
+            "early_f64": early, "escaped": escapes,
+            "mse_x1_kernel": mse_k, "mse_x1_plain": mse_p,
+            "sse_x1_kernel": sse_k, "sse_x1_plain": sse_p,
+            "scenarios_in_quality": int(keep.sum()),
+            "quality_rtol": QUALITY_RTOL}
+    print("phase 13 gate " + json.dumps(gate), flush=True)
+    for a, b, what in ((mse_k, mse_p, "tracking MSE"),
+                       (sse_k, sse_p, "steady-state error")):
+        if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
+            fail(f"vdp x1 {what}: kernel {a} vs plain {b}")
+
+    walls = {runs["xla"]: [], runs["pallas"]: []}
+    for fn in (runs["xla"], runs["pallas"], runs["pallas"], runs["xla"]):
+        walls[fn].append(timed(fn)[1])
+    switch = pipe.config.switch_step
+    x1 = logs["pallas"][0].x[keep, :, 0]
+    route = lambda r: {"runs_s": walls[r],
+                       "ms_per_step": sum(walls[r]) / 2 / VDP_STEPS * 1e3,
+                       "solves_per_s": BATCH * VDP_STEPS * 2 / sum(walls[r])}
+    line = {"slice": "vdp lifted-tracking bench loop, koopmanx_torch",
+            "batch": BATCH, "steps": VDP_STEPS, "switch_step": switch,
+            "horizon": HORIZON, "nlift": nlift, "dtype": "float32",
+            "kernel_route": route(runs["pallas"]),
+            "plain_route": route(runs["xla"]),
+            "x1_tail_mean_pre_switch": float(x1[:, switch - 50:switch].mean()),
+            "x1_tail_mean_post_switch": float(x1[:, -50:].mean()),
+            "card": card}
+    print(json.dumps(line), flush=True)
+    return counts_k
+
+
+def phase_estimators(device, card: str):
+    """Phase 14: the storage method, the Gram-carry RLS with its reset,
+    the SM RLS in float64 and the sine reference, each at 8192 scenarios
+    for ESTIMATOR_STEPS steps through the kernel route, with the float64
+    kernel vs plain gate. Returns the launch counts by run."""
+    from koopmanx_torch.configs import (
+        flagship_config,
+        vdp_bench_config,
+        vdp_rbf_bench_config,
+    )
+
+    def flagship(mode, **update):
+        def make(backend, steps):
+            cfg = flagship_config(steps=steps, horizon=HORIZON,
+                                  qp_backend=backend)
+            cfg.update.mode = mode
+            for k, v in update.items():
+                setattr(cfg.update, k, v)
+            return cfg
+        return make
+
+    def vdp_sine(backend, steps):
+        cfg = vdp_bench_config(steps, backend)
+        cfg.reference = "sine"
+        return cfg
+
+    cases = {
+        "vdp_rbf storage": (lambda b, s: vdp_rbf_bench_config(s, b),
+                            "float32"),
+        "flagship rls_chol, reset_mult 4": (
+            flagship("rls_chol", ridge=1e-2, reset_mult=4.0), "float32"),
+        "flagship rls, float64": (flagship("rls"), "float64"),
+        "vdp sine reference": (vdp_sine, "float32"),
+    }
+    counts, report = {}, {}
+    for name, (make, dtype) in cases.items():
+        t0 = time.perf_counter()
+        run = config_loop(make("pallas", ESTIMATOR_STEPS), device, dtype)
+        cfg = run.pipe.config
+        zero_counts()
+        (carry, log), wall, mem = run_with_memory(run)
+        counts[name] = read_counts()
+        if counts[name] != {"box_admm": ESTIMATOR_STEPS, "fused_qp": 0,
+                            "fused_qp_soa": 0}:
+            fail(f"{name} launched {counts[name]} in {ESTIMATOR_STEPS} steps")
+        escaped, x1_max = check_estimator_loop(
+            carry, log, name, ESTIMATOR_STEPS, cfg.mpc.u_max)
+        resets = None
+        if cfg.update.reset_mult > 0:
+            resets = int(replay_resets(log.residual, cfg.update.reset_mult))
+            if resets == 0:
+                fail(f"{name}: no reset triggered in {ESTIMATOR_STEPS} steps")
+        mse, sse = (quality_on(log, ~escaped, tail=20)
+                    if cfg.reference == "constant" else (None, None))
+        report[name] = {
+            "estimator": type(carry.rls).__name__, "dtype": dtype,
+            "nlift": run.pipe.dictionary.nlift, "reference": cfg.reference,
+            "launches": counts[name], "wall_s_cold": wall,
+            "ms_per_step_cold": wall / ESTIMATOR_STEPS * 1e3,
+            "peak_gib": mem / 2**30, "u_abs_max": float(log.u.abs().max()),
+            "resets": resets, "mse_x1_vs_1": mse, "sse_x1_vs_1_last20": sse,
+            **escape_report(escaped, x1_max, name),
+            "early_f64": early_f64_gate(make, device, name),
+            "phase_s": time.perf_counter() - t0}
+    print("phase 14 estimators " + json.dumps(
+        {"batch": BATCH, "steps": ESTIMATOR_STEPS, **report, "card": card}),
+        flush=True)
+    return counts
+
+
+def replay_resets(residual, mult: float, beta: float = 0.98):
+    """Reset triggers of ``engine.core.change_reset``, replayed from the
+    logged pre-update residuals (B, T)."""
+    import torch
+
+    ema = torch.zeros_like(residual[:, 0])
+    total = 0
+    for t in range(residual.shape[1]):
+        r = residual[:, t]
+        warmed = ema > 0
+        trig = warmed & (r > mult * ema)
+        total += int(trig.sum())
+        ema = torch.where(trig, ema, beta * ema + (1 - beta) * r)
+        ema = torch.where(warmed, ema, r)
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -1490,7 +1761,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     # ---- 1. build ----
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     reports = build.build_all()
     build_s = time.perf_counter() - t0
     for name, log in reports.items():
@@ -1614,6 +1885,15 @@ def main() -> int:
     mimo_counts = phase_tank_mimo(device, card)
     phase_general(device, card)
     print(f"phases 11-12: {time.perf_counter() - t11:.1f} s", flush=True)
+
+    # ---- 13. the VDP lifted-tracking path; 14. the other estimators ----
+    t13 = time.perf_counter()
+    vdp_counts = phase_vdp(device, card)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+    t14 = time.perf_counter()
+    estimator_counts = phase_estimators(device, card)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s; phases 1-14: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
         "tank (phase 7)": tank_counts["box_admm"],
@@ -1621,7 +1901,10 @@ def main() -> int:
         "rbf128 bench (phase 9)": rbf_counts["box_admm"],
         "duffing_rff preset (phase 10)": rff_counts["box_admm"],
         "rbf128 bench, bf16 ring (phase 10)": bf16_counts["box_admm"],
-        "tank_mimo bench (phase 11)": mimo_counts["box_admm"]}
+        "tank_mimo bench (phase 11)": mimo_counts["box_admm"],
+        "vdp bench (phase 13)": vdp_counts["box_admm"],
+        **{f"{name} (phase 14)": c["box_admm"]
+           for name, c in estimator_counts.items()}}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

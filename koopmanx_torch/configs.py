@@ -1,7 +1,8 @@
 """The configuration surface (a copy of ``koopmanx/configs.py:18-299``, the
 ``duffing_rbf``/``duffing_rff`` presets at :365-413, ``tank3`` at
-:416-452, ``tank_mimo`` at :454-482, ``pendulum`` at :485-515 and
-``duffing_rbf128`` at :517-547).
+:416-452, ``tank_mimo`` at :454-482, ``pendulum`` at :485-515,
+``duffing_rbf128`` at :517-547, ``vanderpol_rbf`` at :570-577 and
+``vanderpol_selftrained`` at :604-628).
 
 The port keeps its own copy of the dataclasses so that it imports nothing
 of ``koopmanx``. Field names and defaults are the JAX package's; fields of
@@ -76,7 +77,7 @@ class MPCConfig:
 
 @dataclasses.dataclass
 class UpdateConfig:
-    mode: str = "rls"  # the port has 'rls_sqrt', 'windowed' and 'off'
+    mode: str = "rls"  # rls | rls_sqrt | rls_chol | windowed | storage | off
     c_ab: float = 1e4
     c_c: float = 1e2
     warm_start_from_batch: bool = False
@@ -141,6 +142,34 @@ def duffing_nn_preset() -> RunConfig:
         lift=LiftConfig(
             kind="mlp", nlift=8, normalize=True,
             weights_path="Revise_2/duffing_weights.mat",
+        ),
+    )
+
+
+def vdp_lifted_preset() -> RunConfig:
+    """vanderpol.py: lifted-space tracking of the encoded reference,
+    u in [-6, 6] (:542-544), RLS inits 1e5 (:874, :888), the live switch at
+    step 100 (:712), block-8 KKT elimination, square-root RLS with a 1e-2
+    ridge trickle.
+
+    The encoder weights are the reference's ``Good_VDP.mat``, named
+    relative to the reference tree; where it is absent,
+    ``run.build_dictionary`` falls back to the in-repo artifact
+    ``artifacts/vanderpol_kmae_encoder.mat``, as the JAX package does."""
+    return RunConfig(
+        system="vanderpol",
+        steps=10000,
+        switch_step=100,
+        mpc=MPCConfig(
+            horizon=10, q_weight=100.0, r_weight=1e-4, u_min=-6, u_max=6,
+            track_lifted=True, qp_kkt_block=8,
+        ),
+        update=UpdateConfig(
+            mode="rls_sqrt", ridge=1e-2, c_ab=1e5, c_c=1e5, c_pairing="next"
+        ),
+        lift=LiftConfig(
+            kind="mlp", nlift=8, normalize=True,
+            weights_path="VDP_Revise_2/Good_VDP.mat",
         ),
     )
 
@@ -260,8 +289,10 @@ def pendulum_preset() -> RunConfig:
 def duffing_rbf_preset() -> RunConfig:
     """duffing_RBF.py: thinplate-eps RBF lift with k-means centers (:20-23,
     :44-46), state-augmented and normalized, the storage-method online
-    update (:404-438; not ported yet, ROADMAP queue A, item 13), otherwise
-    the duffing.py MPC scenario. The base of the two presets below."""
+    update (:404-438: the Grams of the training snapshots grown by every
+    observation and pseudo-inverted every step), otherwise the duffing.py
+    MPC scenario. The base of ``duffing_rff``, ``duffing_rbf128`` and
+    ``vanderpol_rbf``."""
     return RunConfig(
         system="duffing",
         steps=10000,
@@ -306,6 +337,30 @@ def duffing_rbf128_preset() -> RunConfig:
     return cfg
 
 
+def vanderpol_rbf_preset() -> RunConfig:
+    """vanderpol_RBF.py: ``duffing_rbf``'s lift and storage update on the
+    VDP plant, with its switch at step 100 and u in [-6, 6]."""
+    cfg = duffing_rbf_preset()
+    cfg.system = "vanderpol"
+    cfg.switch_step = 100
+    cfg.mpc.u_min, cfg.mpc.u_max = -6.0, 6.0
+    return cfg
+
+
+def vanderpol_selftrained_preset() -> RunConfig:
+    """Self-contained VDP: the in-repo KMAE encoder
+    (``artifacts/vanderpol_kmae_refscale_encoder.mat``, trained with +-6
+    excitation) under OUTPUT tracking (y = C z against [1, 0]) and data
+    excited over the control range. The JAX package found lifted tracking
+    encoder-sensitive: a generically trained encoder settles at the wrong
+    point, output tracking does not."""
+    cfg = vdp_lifted_preset()
+    cfg.mpc.track_lifted = False
+    cfg.data.u_range = (-6.0, 6.0)
+    cfg.lift.weights_path = "artifacts/vanderpol_kmae_refscale_encoder.mat"
+    return cfg
+
+
 PRESETS = {
     "duffing": duffing_nn_preset,
     "duffing_rbf": duffing_rbf_preset,
@@ -315,6 +370,9 @@ PRESETS = {
     "tank3": tank3_preset,
     "tank_mimo": tank_mimo_preset,
     "pendulum": pendulum_preset,
+    "vanderpol": vdp_lifted_preset,
+    "vanderpol_rbf": vanderpol_rbf_preset,
+    "vanderpol_selftrained": vanderpol_selftrained_preset,
 }
 
 
@@ -336,6 +394,19 @@ def flagship_config(steps: int = 200, horizon: int = 20,
     return cfg
 
 
+def _bench_overrides(cfg: RunConfig, steps: int, qp_backend: str
+                     ) -> RunConfig:
+    """``bench.py``'s overrides for a preset other than Duffing
+    (``bench.py:52-113``): f32, horizon 20, the plant switch at
+    ``steps // 2`` and 50x50 data with the preset's ranges."""
+    cfg.steps = steps
+    cfg.dtype = "float32"
+    cfg.mpc.horizon = 20
+    cfg.mpc.qp_backend = qp_backend
+    cfg.switch_step = steps // 2
+    cfg.data = dataclasses.replace(cfg.data, n_step=50, n_traj=50)
+    return cfg
+
 
 def tank_bench_config(steps: int = 400, qp_backend: str = "pallas"
                       ) -> RunConfig:
@@ -344,14 +415,7 @@ def tank_bench_config(steps: int = 400, qp_backend: str = "pallas"
     at ``steps // 2`` and 50x50 data with the preset's ``u_range`` and
     ``clamp_x0``. The bench samples x0 in U[0, 2] for the tanks
     (``bench.py:103-110``)."""
-    cfg = tank_preset()
-    cfg.steps = steps
-    cfg.dtype = "float32"
-    cfg.mpc.horizon = 20
-    cfg.mpc.qp_backend = qp_backend
-    cfg.switch_step = steps // 2
-    cfg.data = dataclasses.replace(cfg.data, n_step=50, n_traj=50)
-    return cfg
+    return _bench_overrides(tank_preset(), steps, qp_backend)
 
 
 def rbf128_bench_config(steps: int = 200, qp_backend: str = "pallas"
@@ -362,14 +426,7 @@ def rbf128_bench_config(steps: int = 200, qp_backend: str = "pallas"
     preset's ranges; the lift (126 k-means centers + the state, nlift 128)
     and the Woodbury estimator are the preset's. The bench samples its
     8192 scenarios with x0 ~ U[-2, 2]^2 and param_scale 0.15."""
-    cfg = duffing_rbf128_preset()
-    cfg.steps = steps
-    cfg.dtype = "float32"
-    cfg.mpc.horizon = 20
-    cfg.mpc.qp_backend = qp_backend
-    cfg.switch_step = steps // 2
-    cfg.data = dataclasses.replace(cfg.data, n_step=50, n_traj=50)
-    return cfg
+    return _bench_overrides(duffing_rbf128_preset(), steps, qp_backend)
 
 
 def tank_mimo_bench_config(steps: int = 200, qp_backend: str = "pallas"
@@ -382,11 +439,24 @@ def tank_mimo_bench_config(steps: int = 200, qp_backend: str = "pallas"
     U[0, 2]^2 and param_scale 0.15. ``qp_backend='pallas'`` inverts the
     dense 40 x 40 KKT and runs the box-ADMM kernel; ``'xla'`` builds the
     output-space (low-rank) inverse and runs the plain ADMM."""
-    cfg = tank_mimo_preset()
-    cfg.steps = steps
-    cfg.dtype = "float32"
-    cfg.mpc.horizon = 20
-    cfg.mpc.qp_backend = qp_backend
-    cfg.switch_step = steps // 2
-    cfg.data = dataclasses.replace(cfg.data, n_step=50, n_traj=50)
-    return cfg
+    return _bench_overrides(tank_mimo_preset(), steps, qp_backend)
+
+
+def vdp_bench_config(steps: int = 200, qp_backend: str = "pallas"
+                     ) -> RunConfig:
+    """``vdp_lifted_preset`` with ``bench.py``'s overrides
+    (``BENCH_PRESET=vanderpol``, the JAX bench's lifted-tracking workload):
+    lifted tracking at N = 20 (B1 at nx = 20), the fallback encoder, the
+    square-root RLS. The bench samples its 8192 scenarios with x0 ~
+    U[-2, 2]^2 and param_scale 0.15."""
+    return _bench_overrides(vdp_lifted_preset(), steps, qp_backend)
+
+
+def vdp_rbf_bench_config(steps: int = 200, qp_backend: str = "pallas"
+                         ) -> RunConfig:
+    """``vanderpol_rbf_preset`` with ``bench.py``'s overrides
+    (``BENCH_PRESET=vanderpol_rbf``): output tracking at N = 20, the
+    state-augmented thinplate-eps RBF lift (nlift 10) and the storage
+    method. The bench samples its 8192 scenarios with x0 ~ U[-2, 2]^2 and
+    param_scale 0.15."""
+    return _bench_overrides(vanderpol_rbf_preset(), steps, qp_backend)

@@ -13,10 +13,13 @@ This module imports no JAX. ``arrays`` is a dict:
   names them (``zero_offset`` inside ``state_augmented`` when both);
 - ``"normalizer"``: ``(mu, sc)``, or absent/None for an un-normalized lift;
 - ``"model0"``: ``(A, B, C)``;
-- ``"rls0"``: ``{"K_A", "r_g", "barX", "r_q", "count"}`` (square-root RLS)
-  or ``{"zx", "u", "zy", "x", "idx"}`` (the windowed estimator's rings
+- ``"rls0"``: the estimator state's fields by name, which pick its type:
+  ``{"zx", "u", "zy", "x", "idx"}`` (the windowed estimator's rings
   and cursor) with, in the Woodbury lane, ``"g"``, ``"g_inv"``, ``"gz"``,
-  ``"gz_inv"``, ``"mg"``, ``"mc"`` (absent keys, or None, stay None). The
+  ``"gz_inv"``, ``"mg"``, ``"mc"`` (absent keys, or None, stay None);
+  ``{"K_A", "invG", "barX", "barQ"}`` (SM RLS); ``{"syv", "gvv", "sxz",
+  "gzz"}`` (storage); ``{"K_A", "g", "barX", "q"}`` (Gram-carry RLS);
+  ``{"K_A", "r_g", "barX", "r_q", "count"}`` (square-root RLS). The
   rings are cast to the config's ``window_store`` dtype: numpy has no
   bfloat16, so a compressed ring arrives in float32 and is cast back,
   which is exact for values the storage dtype holds;
@@ -35,7 +38,7 @@ import torch
 
 from . import configs as C
 from .device import DeviceLike, resolve_device
-from .edmd.rls import SqrtRLSState
+from .edmd.rls import GramRLSState, SqrtRLSState, StorageState
 from .edmd.windowed import WindowState
 from .engine.core import MPCParams
 from .engine.loop import make_closed_loop
@@ -51,10 +54,20 @@ from .lifts.mlp import MLP, encoder_dictionary
 from .lifts.rbf import RBF, rbf_dictionary
 from .run import Pipeline, engine_config, ref_fn_for, store_dtype
 from .systems.library import get_system
-from .types import LinearModel
+from .types import LinearModel, RLSState
 
 _INT = {"count", "idx"}
 _RINGS = {"zx", "u", "zy", "x"}
+# each estimator state with a field that no state before it in the list has
+_STATES = ((WindowState, "zx"), (RLSState, "invG"), (StorageState, "syv"),
+           (GramRLSState, "q"), (SqrtRLSState, "r_g"))
+
+
+def _state_class(fields: Dict[str, Any]):
+    for cls, key in _STATES:
+        if fields.get(key) is not None:
+            return cls
+    raise ValueError(f"no estimator state has the fields {sorted(fields)}")
 
 
 def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
@@ -88,7 +101,7 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
     a, b, c = arrays["model0"]
     model0 = LinearModel(A=t(a), B=t(b), C=t(c))
     r = arrays["rls0"]
-    state_cls = WindowState if "zx" in r else SqrtRLSState
+    state_cls = _state_class(r)
     rls0 = state_cls(**{k: leaf(k, r[k]) for k in state_cls._fields
                         if r.get(k) is not None})
     store = store_dtype(cfg)
@@ -117,7 +130,7 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
         params=params,
         closed_loop=make_closed_loop(
             system, dictionary, engine_cfg,
-            ref_fn_for(cfg, params.q_block.shape[-1], dev),
+            ref_fn_for(cfg, params.q_block.shape[-1], dev, dictionary),
         ),
         x_init=x_init,
         device=dev,

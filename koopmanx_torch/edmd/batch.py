@@ -38,9 +38,15 @@ def pinv(a: Tensor) -> Tensor:
     """Pseudo-inverse with ``jnp.linalg.pinv``'s default cutoff: singular
     values at most ``10 * max(M, N) * eps`` times the largest are dropped.
     ``torch.linalg.pinv``'s own default is ``max(M, N) * eps``, ten times
-    smaller, so the cutoff is passed explicitly."""
+    smaller, so the cutoff is passed explicitly.
+
+    A matrix with a non-finite entry gives an all-NaN pseudo-inverse, as
+    JAX's does (torch's SVD raises on one instead), so that the engine's
+    guard holds that scenario alone."""
     rtol = 10.0 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
-    return torch.linalg.pinv(a, rtol=rtol)
+    finite = torch.isfinite(a).all(-1).all(-1)[..., None, None]
+    out = torch.linalg.pinv(torch.where(finite, a, 0.0), rtol=rtol)
+    return torch.where(finite, out, float("nan"))
 
 
 def fit_from_grams(stats: GramStats, nlift: int) -> LinearModel:

@@ -1,9 +1,16 @@
-"""Square-root (Cholesky-factor) recursive least squares (counterpart of
-``koopmanx/edmd/rls.py:189-310``).
+"""Online least-squares estimators (counterpart of ``koopmanx/edmd/rls.py``):
 
-The carry holds upper-triangular factors of the [z; u] and z Grams,
-updated by Givens rotations, and the model is extracted with two
-triangular solves. Every function takes a leading scenario axis.
+- the rank-one Sherman-Morrison RLS of the reference (``update='rls'``,
+  :60-137): the carry holds the inverse Grams, which the SM step downdates;
+- the storage method (``update='storage'``, :140-175): raw Grams grown by
+  each observation and pseudo-inverted every step;
+- the Gram-carry RLS (``update='rls_chol'``, :329-430): raw Grams, the
+  model extracted by an exact SPD inverse with a ridge;
+- the square-root (Cholesky-factor) RLS (``update='rls_sqrt'``,
+  :189-310): upper-triangular factors of the [z; u] and z Grams, updated
+  by Givens rotations, the model extracted with two triangular solves.
+
+Every function takes a leading scenario axis.
 
 Precision: this is estimator math and must run in full float32 (the JAX
 package pins ``precision='highest'``); the port's entry points turn TF32
@@ -16,7 +23,149 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from ..types import LinearModel
+from ..ops.linalg import spd_inverse
+from ..types import LinearModel, RLSState
+from .batch import GramStats, pinv
+
+
+def _outer(a: Tensor, b: Tensor) -> Tensor:
+    return a.unsqueeze(-1) * b.unsqueeze(-2)
+
+
+def _symmetrized(a: Tensor) -> Tensor:
+    return 0.5 * (a + a.transpose(-1, -2))
+
+
+def rls_init(nlift: int, m: int, n: int, c_ab: float = 1e4, c_c: float = 1e2,
+             dtype: torch.dtype = torch.float32, device=None) -> RLSState:
+    """``invG = c_ab I``, ``barQ = c_c I`` (duffing.py:929-946; 1e5 in
+    vanderpol.py:874,888), one scenario, no batch axis."""
+    kw = dict(dtype=dtype, device=device)
+    return RLSState(
+        K_A=torch.zeros((nlift, nlift + m), **kw),
+        invG=c_ab * torch.eye(nlift + m, **kw),
+        barX=torch.zeros((n, nlift), **kw),
+        barQ=c_c * torch.eye(nlift, **kw),
+    )
+
+
+def _sm_downdate(inv_g: Tensor, v: Tensor, lam: float) -> Tensor:
+    """One Sherman-Morrison step on an inverse Gram,
+    ``(invG - (invG v)(invG v)' / (lam + v' invG v)) / lam``."""
+    gv = (inv_g @ v.unsqueeze(-1)).squeeze(-1)
+    denom = lam + (v * gv).sum(-1)
+    return (inv_g - _outer(gv, gv) / denom[..., None, None]) / lam
+
+
+def rls_update_ab(state: RLSState, z: Tensor, u: Tensor, z_next: Tensor,
+                  lam: float = 1.0, symmetrize: bool = False) -> RLSState:
+    """Rank-one update of the [A B] regression with the observation
+    (v = [z; u], z+) (duffing.py:932-937)."""
+    v = torch.cat([z, u], dim=-1)
+    inv_g = _sm_downdate(state.invG, v, lam)
+    if symmetrize:
+        inv_g = _symmetrized(inv_g)
+    return state._replace(K_A=state.K_A + _outer(z_next, v), invG=inv_g)
+
+
+def rls_update_c(state: RLSState, z: Tensor, x_target: Tensor,
+                 lam: float = 1.0, symmetrize: bool = False) -> RLSState:
+    """Rank-one update of the output regression C z ~ x with the pair
+    (z, x_target) (duffing.py:942-953)."""
+    bar_q = _sm_downdate(state.barQ, z, lam)
+    if symmetrize:
+        bar_q = _symmetrized(bar_q)
+    return state._replace(barX=state.barX + _outer(x_target, z), barQ=bar_q)
+
+
+class StorageState(NamedTuple):
+    """Carry of the storage method (duffing_RBF.py:404-438): the raw Grams
+    of every observation so far, training snapshots included, the
+    sufficient statistics of the growing snapshot buffers."""
+
+    syv: Tensor  # (..., N, N+m)
+    gvv: Tensor  # (..., N+m, N+m)
+    sxz: Tensor  # (..., n, N)
+    gzz: Tensor  # (..., N, N)
+
+
+def storage_init(stats: GramStats) -> StorageState:
+    return StorageState(stats.syv, stats.gvv, stats.sxz, stats.gzz)
+
+
+def storage_update(state: StorageState, z: Tensor, u: Tensor, z_next: Tensor,
+                   x_target: Tensor) -> StorageState:
+    v = torch.cat([z, u], dim=-1)
+    return StorageState(
+        syv=state.syv + _outer(z_next, v),
+        gvv=state.gvv + _outer(v, v),
+        sxz=state.sxz + _outer(x_target, z),
+        gzz=state.gzz + _outer(z, z),
+    )
+
+
+def storage_model(state: StorageState, nlift: int) -> LinearModel:
+    """The batch fit on the grown Grams: two pseudo-inverses a step, with
+    the JAX package's cutoff (``batch.pinv``)."""
+    k_ext = state.syv @ pinv(state.gvv)
+    c = state.sxz @ pinv(state.gzz)
+    return LinearModel(A=k_ext[..., :, :nlift], B=k_ext[..., :, nlift:], C=c)
+
+
+class GramRLSState(NamedTuple):
+    """Carry of the Gram-carry RLS (``update='rls_chol'``): K_A / barX
+    accumulate as in the reference (duffing.py:937, 943); g / q are the raw
+    Grams of [z; u] and z."""
+
+    K_A: Tensor  # (..., N, N+m)
+    g: Tensor  # (..., N+m, N+m)
+    barX: Tensor  # (..., p, N)
+    q: Tensor  # (..., N, N)
+
+
+def gram_rls_init(nlift: int, m: int, n: int, c_ab: float = 1e4,
+                  c_c: float = 1e2, dtype: torch.dtype = torch.float32,
+                  device=None) -> GramRLSState:
+    """The prior of :func:`rls_init`: inv(G0) = c I, so G0 = I / c."""
+    kw = dict(dtype=dtype, device=device)
+    return GramRLSState(
+        K_A=torch.zeros((nlift, nlift + m), **kw),
+        g=torch.eye(nlift + m, **kw) / c_ab,
+        barX=torch.zeros((n, nlift), **kw),
+        q=torch.eye(nlift, **kw) / c_c,
+    )
+
+
+def gram_rls_update(state: GramRLSState, z: Tensor, u: Tensor,
+                    z_next: Tensor, x_target: Tensor, lam: float = 1.0
+                    ) -> GramRLSState:
+    """Both rank-one updates, the Grams first scaled by ``lam`` < 1."""
+    v = torch.cat([z, u], dim=-1)
+    g = state.g if lam == 1.0 else lam * state.g
+    q = state.q if lam == 1.0 else lam * state.q
+    return GramRLSState(
+        K_A=state.K_A + _outer(z_next, v),
+        g=g + _outer(v, v),
+        barX=state.barX + _outer(x_target, z),
+        q=q + _outer(z, z),
+    )
+
+
+def gram_rls_model(state: GramRLSState, nlift: int, ridge: float = 1e-6,
+                   schulz_iters: int = 0) -> LinearModel:
+    """K_ext = K_A (G + ridge I)^-1 and C = barX (Q + ridge I)^-1 through
+    the exact pivot-free ``spd_inverse``; ``schulz_iters`` > 0 selects the
+    JAX package's legacy Newton-Schulz extraction instead."""
+    if schulz_iters:
+        eye = lambda a: torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+        g_inv = schulz_inverse(state.g + ridge * eye(state.g), schulz_iters)
+        q_inv = schulz_inverse(state.q + ridge * eye(state.q), schulz_iters)
+    else:
+        g_inv = spd_inverse(state.g, eps=ridge)
+        q_inv = spd_inverse(state.q, eps=ridge)
+    k_ext = state.K_A @ g_inv
+    return LinearModel(A=k_ext[..., :, :nlift], B=k_ext[..., :, nlift:],
+                       C=state.barX @ q_inv)
 
 
 class SqrtRLSState(NamedTuple):

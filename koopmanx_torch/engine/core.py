@@ -1,7 +1,8 @@
 """The per-step MPC body (counterpart of ``koopmanx/engine/core.py``).
 
 The port has ``make_control_solver`` (:383-729) for the MPC controller
-without terminal synthesis: the du formulation (:423-425); the
+without terminal synthesis: lifted-space tracking (:416-422); the du
+formulation (:423-425); the
 applied-input window folded into the first decision block's bounds
 (``applied_bounds='box'``, :519-584) or as explicit rows
 (``applied_bounds='rows'``, :519-539); the state-box rows through F1/F2
@@ -9,10 +10,10 @@ applied-input window folded into the first decision block's bounds
 general-inequality ADMM (``solve_qp``, :668-676); on the box path the
 output-space (low-rank) KKT inverse for py < m on the plain route
 (:596-666); the dither probe and the du accumulator (:686-704);
-``dual_dim`` (:854-864); the ``rls_sqrt`` and ``windowed`` branches of
-``make_estimator_update`` (the Woodbury lane, :922-938, and the refit
-from the ring buffers, :939-981) with the model guard (:988-1008) applied
-per scenario; and ``change_reset`` (:1015-1047). Every function takes a
+``dual_dim`` (:854-864); every branch of ``make_estimator_update``
+(:897-984: ``rls``, ``rls_chol``, ``rls_sqrt``, the windowed Woodbury lane
+and refit from the ring buffers, ``storage``) with the model guard
+(:988-1008) applied per scenario; and ``change_reset`` (:1015-1047). Every function takes a
 leading scenario axis where the JAX package was ``vmap``-ed, and the step
 index is a Python int, so each ``lax.cond`` on it is a plain branch.
 Options of paths not ported yet raise ``NotImplementedError`` naming their
@@ -39,7 +40,17 @@ from ..control.qp import (
     make_box_qp_solver,
     solve_qp,
 )
-from ..edmd.rls import sqrt_rls_model, sqrt_rls_update_ab, sqrt_rls_update_c
+from ..edmd.rls import (
+    gram_rls_model,
+    gram_rls_update,
+    rls_update_ab,
+    rls_update_c,
+    sqrt_rls_model,
+    sqrt_rls_update_ab,
+    sqrt_rls_update_c,
+    storage_model,
+    storage_update,
+)
 from ..edmd.windowed import (
     WindowState,
     window_model,
@@ -50,7 +61,7 @@ from ..edmd.windowed import (
 )
 from ..lifts.base import Dictionary
 from ..ops.linalg import spd_inverse
-from ..types import LinearModel, QPSolution
+from ..types import LinearModel, QPSolution, model_from_rls
 
 
 class MPCParams(NamedTuple):
@@ -87,6 +98,7 @@ class EngineConfig:
     c_pairing: str = "next"  # 'next' (duffing.py:943) | 'same'
     rls_lambda: float = 1.0
     rls_ridge: float = 0.0
+    symmetrize: bool = True  # 'rls': re-symmetrize the inverse Grams
     switch_step: int = 100
     markov: str = "dag"
     qp_iters: int = 60
@@ -135,14 +147,14 @@ class EngineConfig:
         )
 
 
+UPDATE_MODES = ("rls", "rls_chol", "rls_sqrt", "windowed", "storage", "off")
+
+
 def check_supported(cfg: EngineConfig) -> None:
     """Refuse the options whose paths the port has not reached yet."""
     todo = [
         (cfg.controller != "mpc", "controller='lqr'", "item 15"),
-        (cfg.track_lifted, "track_lifted", "item 13"),
         (cfg.terminal_synthesis, "terminal_synthesis", "item 14"),
-        (cfg.update not in ("rls_sqrt", "windowed", "off"),
-         f"update={cfg.update!r}", "item 13"),
         (cfg.qp_kkt_refine > 0, "qp_kkt_refine (carried KKT inverse)",
          "L3"),
         (cfg.qp_kkt_bf16, "qp_kkt_bf16", "L3"),
@@ -155,6 +167,8 @@ def check_supported(cfg: EngineConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP queue A, {item})"
             )
+    if cfg.update not in UPDATE_MODES:
+        raise ValueError(f"unknown update {cfg.update!r}")
     if cfg.qp_warm_start not in ("primal", "full", "off"):
         raise ValueError(f"unknown qp_warm_start {cfg.qp_warm_start!r}")
     if cfg.applied_bounds not in ("box", "rows"):
@@ -272,6 +286,12 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
     def control_solve(params: MPCParams, model: LinearModel, z: Tensor,
                       u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: int
                       ) -> ControlDecision:
+        # lifted-space tracking (vanderpol.py:456-459): the tracked output
+        # is z itself, so the predictor's C is the identity
+        # (VDP_Revise_2/...m:99: C = eye(Nlift))
+        if cfg.track_lifted:
+            eye = torch.eye(model.A.shape[-1], dtype=z.dtype, device=z.device)
+            model = model._replace(C=eye.expand(model.A.shape))
         # du augmentation of the current (online-updated) model,
         # Tank_System.m:265-268
         if cfg.delta_u:
@@ -288,7 +308,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
                 torch.nan_to_num(f, nan=0.0, posinf=fc, neginf=-fc).clamp(-fc, fc)
                 for f in pred
             ))
-        r_window = ref_fn(step)  # (horizon, py)
+        r_window = ref_fn(step)  # (horizon, py); py = nlift when lifted
         yr = r_window.reshape(-1)
         # extra inequality rows: the applied window on du_0 ('rows'; one
         # selector [I_m 0] shared by every scenario), the state box on the
@@ -410,6 +430,20 @@ def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
             # the ring absorbs every observation, refit or not
             rls_new = window_update(rls, z, u, z_next, c_target)
             new_model = windowed_refit(rls_new, step)
+        elif cfg.update == "rls":
+            rls_new = rls_update_ab(rls, z, u, z_next, lam=cfg.rls_lambda,
+                                    symmetrize=cfg.symmetrize)
+            rls_new = rls_update_c(rls_new, z, c_target, lam=cfg.rls_lambda,
+                                   symmetrize=cfg.symmetrize)
+            new_model = model_from_rls(rls_new, nlift)
+        elif cfg.update == "rls_chol":
+            rls_new = gram_rls_update(rls, z, u, z_next, c_target,
+                                      lam=cfg.rls_lambda)
+            new_model = gram_rls_model(rls_new, nlift,
+                                       ridge=max(cfg.rls_ridge ** 2, 1e-7))
+        elif cfg.update == "storage":
+            rls_new = storage_update(rls, z, u, z_next, c_target)
+            new_model = storage_model(rls_new, nlift)
         else:
             rls_new = sqrt_rls_update_ab(rls, z, u, z_next,
                                          lam=cfg.rls_lambda,
@@ -434,17 +468,23 @@ def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
 
 
 def change_reset(cfg: EngineConfig, rls, res_ema: Tensor, residual: Tensor):
-    """Event-triggered statistic reset on the pre-update one-step residual;
-    identity when ``reset_mult`` is 0 (the flagship preset)."""
-    if not (cfg.reset_mult > 0.0 and cfg.update == "rls_sqrt"):
+    """Event-triggered statistic reset on the pre-update one-step residual:
+    the statistics of a triggered scenario are scaled by ``reset_factor``
+    (the square-root factors by its root). Identity when ``reset_mult`` is
+    0 (the flagship preset) or the mode carries no scalable Grams."""
+    if not (cfg.reset_mult > 0.0 and cfg.update in ("rls_sqrt", "rls_chol")):
         return rls, res_ema
     warmed = res_ema > 0
     trigger = warmed & (residual > cfg.reset_mult * res_ema)
     one = torch.ones_like(residual)
     alpha = torch.where(trigger, cfg.reset_factor * one, one)
     a2, a3 = alpha[:, None, None], alpha.sqrt()[:, None, None]
-    rls = rls._replace(K_A=rls.K_A * a2, r_g=rls.r_g * a3,
-                       barX=rls.barX * a2, r_q=rls.r_q * a3)
+    if cfg.update == "rls_sqrt":
+        rls = rls._replace(K_A=rls.K_A * a2, r_g=rls.r_g * a3,
+                           barX=rls.barX * a2, r_q=rls.r_q * a3)
+    else:  # the Gram carry
+        rls = rls._replace(K_A=rls.K_A * a2, g=rls.g * a2,
+                           barX=rls.barX * a2, q=rls.q * a2)
     ema = cfg.residual_ema * res_ema + (1.0 - cfg.residual_ema) * residual
     res_ema = torch.where(trigger, res_ema, ema)
     res_ema = torch.where(warmed, res_ema, residual)

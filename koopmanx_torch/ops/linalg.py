@@ -11,8 +11,9 @@ import torch
 from torch import Tensor
 
 
-def spd_inverse(k: Tensor, block: int = 1) -> Tensor:
-    """Inverse of a batch of SPD matrices, (..., n, n) -> (..., n, n).
+def spd_inverse(k: Tensor, block: int = 1, eps: float = 0.0) -> Tensor:
+    """Inverse of a batch of SPD matrices, (..., n, n) -> (..., n, n);
+    ``eps`` > 0 adds a diagonal ridge first (0 leaves ``k`` untouched).
 
     Pivot-free Gauss-Jordan on the augmented ``[K | I]``. ``block`` > 1
     eliminates ``block`` columns per pass: the pivot rows are first
@@ -24,6 +25,8 @@ def spd_inverse(k: Tensor, block: int = 1) -> Tensor:
     input yields inf/NaN, which the engine's guards sanitize.
     """
     n = k.shape[-1]
+    if eps:
+        k = k + eps * torch.eye(n, dtype=k.dtype, device=k.device)
     eye = torch.eye(n, dtype=k.dtype, device=k.device).expand(k.shape)
     aug = torch.cat([k, eye], dim=-1)  # (..., n, 2n)
     if block <= 1:

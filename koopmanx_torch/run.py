@@ -1,10 +1,12 @@
 """RunConfig -> pipeline -> closed-loop results (counterpart of
 ``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp, with the ``.mat``
 weights and their fallback; rbf with random or k-means centers; random
-Fourier features), ``_mpc_params`` :132-203, ``engine_config`` :206-251,
-``_ref_fn`` :254-270 (constant) and ``build_pipeline`` :282-412, with the
-windowed estimator's prefilled ring, compressed or not, and the Woodbury
-lane's carried statistics).
+Fourier features), ``_mpc_params`` :132-203 (lifted tracking included),
+``engine_config`` :206-251, ``_ref_fn`` :254-280 and ``build_pipeline``
+:282-412, with every estimator's initial state but the warm starts from
+the batch Grams: the windowed estimator's prefilled ring, compressed or
+not, and the Woodbury lane's carried statistics; the storage method's
+training Grams; the SM, Gram-carry and square-root RLS priors).
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ from torch import Tensor
 
 from . import configs as C
 from .device import DeviceLike, resolve_device, torch_dtype
-from .edmd.batch import edmd_fit
-from .edmd.rls import sqrt_rls_init
+from .edmd.batch import edmd_fit, gram_stats
+from .edmd.rls import gram_rls_init, rls_init, sqrt_rls_init, storage_init
 from .edmd.windowed import window_init, window_prefill
 from .engine import ref as refgen
 from .engine.core import check_supported
@@ -131,14 +133,19 @@ def _reference_state(cfg: C.RunConfig, n: int, dtype, device=None) -> Tensor:
     return r
 
 
-def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
-    """Output weight on the tracked outputs (every state, or one channel
-    with ``cy_index``), input weight and box; in du mode the box is du's
-    and ``applied_min``/``applied_max`` bound the applied input;
-    ``state_bounds`` becomes the stacked (N*py,) ``x_min``/``x_max``."""
+def mpc_params(cfg: C.RunConfig, system, nlift: int, device=None
+               ) -> MPCParams:
+    """Output weight on the tracked outputs (the whole lifted state under
+    ``track_lifted``, every state, or one channel with ``cy_index``),
+    input weight and box; in du mode the box is du's and
+    ``applied_min``/``applied_max`` bound the applied input;
+    ``state_bounds`` becomes the stacked (N*py,) ``x_min``/``x_max``; the
+    state-space anchor ``ref_state`` under the constant reference."""
     mc = cfg.mpc
     kw = dict(dtype=torch_dtype(cfg.dtype), device=device)
-    if mc.cy_index is not None:
+    if mc.track_lifted:
+        py, cy = nlift, None
+    elif mc.cy_index is not None:
         py = 1
         cy = torch.zeros((1, system.n), **kw)
         cy[0, mc.cy_index] = 1.0
@@ -164,7 +171,8 @@ def mpc_params(cfg: C.RunConfig, system, device=None) -> MPCParams:
         applied_max=full(applied[1]),
         x_min=x_box[0],
         x_max=x_box[1],
-        ref_state=_reference_state(cfg, system.n, kw["dtype"], device),
+        ref_state=(_reference_state(cfg, system.n, kw["dtype"], device)
+                   if cfg.reference == "constant" else None),
     )
 
 
@@ -188,6 +196,7 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
         c_pairing=uc.c_pairing,
         rls_lambda=uc.forgetting,
         rls_ridge=uc.ridge,
+        symmetrize=uc.symmetrize,
         reset_mult=uc.reset_mult,
         reset_factor=uc.reset_factor,
         window_filter=uc.window_filter,
@@ -214,20 +223,38 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
     return ecfg
 
 
-def ref_fn_for(cfg: C.RunConfig, py: int, device=None):
-    """The constant reference on the first ``py`` state channels."""
-    if cfg.reference != "constant":
-        raise NotImplementedError(
-            f"reference {cfg.reference!r} is not ported yet (ROADMAP queue "
-            "A, item 13)"
-        )
+def ref_fn_for(cfg: C.RunConfig, py: int, device=None,
+               dictionary: Optional[Dictionary] = None):
+    """The reference window of ``cfg.reference`` over ``py`` channels: the
+    constant state reference on the first ``py`` state channels, or under
+    ``track_lifted`` lifted through ``dictionary`` (the engine's own, on
+    ``device``); the time-varying signals on the first channel."""
+    mc = cfg.mpc
     n = get_system(cfg.system).n
     dtype = torch_dtype(cfg.dtype)
-    r_state = _reference_state(cfg, n, dtype)
-    value = torch.zeros((py,), dtype=dtype)
-    k = min(py, n)
-    value[:k] = r_state[:k]
-    return refgen.constant(value, cfg.mpc.horizon, py, dtype, device)
+    kw = dict(dtype=dtype, device=device)
+    if cfg.reference == "constant":
+        r_state = _reference_state(cfg, n, dtype, device)
+        if mc.track_lifted:
+            if dictionary is None:
+                raise ValueError("lifted tracking encodes the reference: "
+                                 "pass the engine's dictionary")
+            base = refgen.constant_state(r_state, mc.horizon, **kw)
+            return refgen.encoded(base, dictionary, n)
+        value = torch.zeros((py,), **kw)
+        k = min(py, n)
+        value[:k] = r_state[:k]
+        return refgen.constant(value, mc.horizon, py, **kw)
+    if cfg.reference == "sine":
+        return refgen.sine(cfg.reference_value, 0.01, mc.horizon, py, **kw)
+    if cfg.reference == "square":
+        return refgen.square(cfg.reference_value, 200, mc.horizon, py, **kw)
+    if cfg.reference == "chirp":
+        return refgen.chirp(cfg.reference_value, mc.horizon, py, **kw)
+    if cfg.reference == "cos_sin_mix":
+        return refgen.cos_sin_mix(0.5, 0.007, 1.2, 0.002, mc.horizon, py,
+                                  **kw)
+    raise ValueError(f"unknown reference {cfg.reference!r}")
 
 
 _STORE = {"bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -247,10 +274,13 @@ def store_dtype(cfg: C.RunConfig) -> Optional[torch.dtype]:
 
 def initial_estimator(cfg: C.RunConfig, dictionary: Dictionary,
                       data: Snapshots):
-    """One scenario's estimator state: the square-root RLS init, or for
+    """One scenario's estimator state (``koopmanx/run.py:350-387``): for
     ``update.mode='windowed'`` a ring (in ``window_store``) prefilled with
     the last W lifted training snapshots, with the Woodbury lane's
-    statistics built from it (``koopmanx/run.py:350-363``)."""
+    statistics built from it; for ``'storage'`` the Grams of the lifted
+    training snapshots; else the scaled-identity prior of the square-root
+    (``'rls_sqrt'``), Gram-carry (``'rls_chol'``) or SM RLS (the rest,
+    ``'off'`` included, as in the JAX package)."""
     system = get_system(cfg.system)
     uc = cfg.update
     dtype = torch_dtype(cfg.dtype)
@@ -261,8 +291,12 @@ def initial_estimator(cfg: C.RunConfig, dictionary: Dictionary,
                             store_dtype=store_dtype(cfg))
         return window_prefill(state, dictionary(data.x), data.u,
                               dictionary(data.y), data.x)
-    return sqrt_rls_init(dictionary.nlift, system.m, system.n, uc.c_ab,
-                         uc.c_c, dtype)
+    if uc.mode == "storage":
+        return storage_init(gram_stats(dictionary(data.x), dictionary(data.y),
+                                       data.u, data.x))
+    init = {"rls_sqrt": sqrt_rls_init, "rls_chol": gram_rls_init}.get(
+        uc.mode, rls_init)
+    return init(dictionary.nlift, system.m, system.n, uc.c_ab, uc.c_c, dtype)
 
 
 def build_pipeline(cfg: C.RunConfig, x_init=None,
@@ -306,7 +340,7 @@ def build_pipeline(cfg: C.RunConfig, x_init=None,
     to = lambda tree: type(tree)(*(None if t is None else t.to(dev)
                                    for t in tree))
     dictionary = dictionary.to(dev)
-    params = mpc_params(cfg, system, dev)
+    params = mpc_params(cfg, system, dictionary.nlift, dev)
     return Pipeline(
         config=cfg,
         dictionary=dictionary,
@@ -317,7 +351,7 @@ def build_pipeline(cfg: C.RunConfig, x_init=None,
         params=params,
         closed_loop=make_closed_loop(
             system, dictionary, engine_cfg,
-            ref_fn_for(cfg, params.q_block.shape[0], dev),
+            ref_fn_for(cfg, params.q_block.shape[0], dev, dictionary),
         ),
         x_init=x_init.to(dev),
         device=dev,

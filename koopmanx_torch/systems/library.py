@@ -1,8 +1,8 @@
 """Plant library (counterpart of ``koopmanx/systems/library.py``).
 
-The port has the Duffing oscillator, the cascaded tanks (two and three
-stages, and the two-pump tank_mimo: exact discrete maps clamped at
-x >= 0) and the damped pendulum;
+The port has the Duffing oscillator, the Van der Pol oscillator, the
+cascaded tanks (two and three stages, and the two-pump tank_mimo: exact
+discrete maps clamped at x >= 0) and the damped pendulum;
 the other plants of the JAX registry raise ``NotImplementedError`` naming
 the ROADMAP item.
 """
@@ -39,6 +39,34 @@ DUFFING = System(
     f=_duffing_f,
     theta0=DuffingParams(d=-0.5, k1=1.0, k3=-1.0),
     theta1=DuffingParams(d=-5.0, k1=2.0, k3=-0.5),
+)
+
+
+class VdpParams(NamedTuple):
+    """x1' = a*x2 ; x2' = b*x2 + c*x1^2*x2 + d*x1 + u."""
+
+    a: Tensor
+    b: Tensor
+    c: Tensor
+    d: Tensor
+
+
+def _vdp_f(t, x: Tensor, u: Tensor, th: VdpParams) -> Tensor:
+    del t
+    x1, x2 = x[..., 0], x[..., 1]
+    dx2 = th.b * x2 + th.c * (x1 * x1) * x2 + th.d * x1 + u[..., 0]
+    return torch.stack([th.a * x2, dx2], dim=-1)
+
+
+# nominal: vanderpol.py:252; switched: vanderpol.py:714 (the switched
+# field's first row drops the factor 2, x1' = x2, as the reference does)
+VANDERPOL = System(
+    name="vanderpol",
+    n=2,
+    m=1,
+    f=_vdp_f,
+    theta0=VdpParams(a=2.0, b=2.0, c=-10.0, d=-0.8),
+    theta1=VdpParams(a=1.0, b=-3.0, c=-10.0, d=-3.0),
 )
 
 
@@ -171,11 +199,11 @@ PENDULUM = System(
     theta1=PendulumParams(a=4.0, b=1.0 / 3.0, k=2.0 / 3.0),
 )
 
-REGISTRY = {s.name: s for s in (DUFFING, TANK, TANK3, TANK_MIMO, PENDULUM)}
+REGISTRY = {s.name: s for s in (DUFFING, VANDERPOL, TANK, TANK3, TANK_MIMO,
+                                PENDULUM)}
 
 # plants of the JAX registry that later slices port (ROADMAP queue A)
 _NOT_PORTED = {
-    "vanderpol": "item 13 (VDP and the remaining estimators)",
     "toy1d": "item 14 (terminal synthesis, Revise_2 presets)",
     "approach3": "item 18 (training)",
 }

@@ -1,4 +1,4 @@
-"""Core types (counterpart of ``koopmanx/types.py:24-97``).
+"""Core types (counterpart of ``koopmanx/types.py:24-130``).
 
 Every leaf is a ``torch.Tensor`` with a leading scenario axis where the
 engine batches (JAX batched the same types with ``vmap``).
@@ -20,6 +20,18 @@ class LinearModel(NamedTuple):
     A: Tensor
     B: Tensor
     C: Tensor
+
+
+class RLSState(NamedTuple):
+    """Carry of the rank-one Sherman-Morrison RLS (``update='rls'``):
+    ``K_A``/``invG`` track the [A B] regression (``K_A += z+ [z;u]'``,
+    ``invG`` the inverse Gram of [z;u]; duffing.py:927-938), ``barX``/
+    ``barQ`` the output map C (duffing.py:942-953)."""
+
+    K_A: Tensor  # (..., N, N+m)
+    invG: Tensor  # (..., N+m, N+m)
+    barX: Tensor  # (..., p, N)
+    barQ: Tensor  # (..., N, N)
 
 
 class QPData(NamedTuple):
@@ -49,3 +61,12 @@ class QPSolution(NamedTuple):
     primal_res: Tensor
     dual_res: Tensor
     iterations: int
+
+
+def model_from_rls(state: RLSState, nlift: int) -> LinearModel:
+    """``K_ext = K_A invG`` sliced into [A B] (duffing.py:938, 978-981) and
+    ``C = barX barQ`` (duffing.py:953). Estimator math: full float32, which
+    the entry points pin (TF32 off, ``device.resolve_device``)."""
+    k_ext = state.K_A @ state.invG
+    return LinearModel(A=k_ext[..., :, :nlift], B=k_ext[..., :, nlift:],
+                       C=state.barX @ state.barQ)

@@ -91,8 +91,9 @@ def test_sample_scenarios_ranges():
 
 
 def test_unported_system_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlib.get_system("vanderpol")
+    for name, item in (("toy1d", "item 14"), ("approach3", "item 18")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            tlib.get_system(name)
 
 
 def test_entry_points_want_cuda_unless_asked_for_cpu():

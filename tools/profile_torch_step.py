@@ -21,7 +21,15 @@ N*m = 40, the window refit every step), profiled on both routes as two
 regimes: ``pallas`` (the dense 40 x 40 ``spd_inverse``, then the
 box-ADMM kernel at nx = 40) and ``xla`` (the output-space construction
 ``lowrank_kkt_inverse``, then the plain ADMM), each with the refit's
-Schulz chains and the ring write. For each regime it prints the top
+Schulz chains and the ring write; ``--config vdp`` the Van der Pol
+lifted-tracking loop (``configs.vdp_bench_config``: the QP tracks the
+lifted reference, py = nlift = 8, so Qbar is (8N, 8N)), whose stages are
+the prediction matrices, the condensed QP, the KKT inverse and the
+square-root RLS; ``--config vdp_rbf`` the storage-method loop
+(``configs.vdp_rbf_bench_config``: two batched pseudo-inverses a step,
+``pinv``, inside ``storage_model``); ``--config rls_chol`` the flagship
+with the Gram-carry RLS and its reset (``gram_rls_model``: two
+``spd_inverse`` with a ridge a step). For each regime it prints the top
 device kernels
 by time, then one JSON line: wall ms per step, device-busy ms per step (the
 union of the kernels' intervals), the device's idle share, kernel launches
@@ -29,13 +37,15 @@ per step, the peak device memory of the unprofiled run, the box-ADMM kernel's sh
 launch, and the device time under each of a few named stages
 (``torch.profiler.record_function`` around the engine's functions: for the
 tank, the Newton-Schulz chains, the refit, the ring write and the
-finiteness checks). For the tank a last JSON line weights the two regimes
+finiteness checks), and the host synchronizations a step
+(``torch.cuda.set_sync_debug_mode('warn')`` over a short unprofiled run,
+by the line that caused each). For the tank a last JSON line weights the two regimes
 by the steps each takes in the shipped preset's run (``tank_preset``) and
 in ``chip_smoke.py``'s phase 7. ``--out`` also writes the whole kernel
 tables to a file.
 
     python3 tools/profile_torch_step.py
-        [--config flagship|tank|rbf128|tank_mimo]
+        [--config flagship|tank|rbf128|tank_mimo|vdp|vdp_rbf|rls_chol]
         [--steps 10]
         [--batch 8192] [--out FILE]
 """
@@ -48,6 +58,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -59,7 +70,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--backend", default="pallas")
     ap.add_argument("--config", default="flagship",
-                    choices=("flagship", "tank", "rbf128", "tank_mimo"))
+                    choices=("flagship", "tank", "rbf128", "tank_mimo",
+                             "vdp", "vdp_rbf", "rls_chol"))
     ap.add_argument("--out", default=None, help="write the kernel table here")
     args = ap.parse_args()
 
@@ -74,10 +86,12 @@ def main() -> int:
         tank_bench_config,
         tank_mimo_bench_config,
         tank_preset,
+        vdp_bench_config,
+        vdp_rbf_bench_config,
     )
     from koopmanx_torch.control import qp
     from koopmanx_torch.engine import core
-    from koopmanx_torch.edmd import windowed
+    from koopmanx_torch.edmd import rls, windowed
     from koopmanx_torch.engine.scenario import sample_scenarios
     from koopmanx_torch.run import build_pipeline, run_scenarios
     from koopmanx_torch.systems.library import get_system
@@ -94,7 +108,11 @@ def main() -> int:
                          (core, "window_model_carry"), (core, "_select"),
                          (core, "prediction_matrices"),
                          (core, "_spectral_radius_estimate"),
-                         (core, "lowrank_kkt_inverse")):
+                         (core, "lowrank_kkt_inverse"),
+                         (core, "condensed_qp"), (core, "storage_update"),
+                         (core, "storage_model"), (rls, "pinv"),
+                         (core, "gram_rls_update"),
+                         (core, "gram_rls_model")):
         stages[name] = 0.0
 
         def ranged(*a, _fn=getattr(module, name), _name=name, **kw):
@@ -114,6 +132,17 @@ def main() -> int:
             x0_range = (0.0, 2.0)
         elif args.config == "rbf128":
             cfg = rbf128_bench_config(steps=steps, qp_backend=backend)
+            x0_range = (-2.0, 2.0)
+        elif args.config in ("vdp", "vdp_rbf"):
+            make = (vdp_bench_config if args.config == "vdp"
+                    else vdp_rbf_bench_config)
+            cfg = make(steps=steps, qp_backend=backend)
+            x0_range = (-2.0, 2.0)
+        elif args.config == "rls_chol":  # chip_smoke.py phase 14's run
+            cfg = flagship_config(steps=steps, horizon=20,
+                                  qp_backend=backend)
+            cfg.update.mode, cfg.update.ridge = "rls_chol", 1e-2
+            cfg.update.reset_mult = 4.0
             x0_range = (-2.0, 2.0)
         else:
             cfg = flagship_config(steps=steps, horizon=20,
@@ -166,6 +195,20 @@ def main() -> int:
             if e.name in stages and e.device_type == DeviceType.CPU:
                 total = getattr(e, "device_time_total", None)
                 stage_us[e.name] += e.cuda_time_total if total is None else total
+        # host synchronizations, by the source line that caused each
+        sync_steps = 3
+        run_sync = loop(sync_steps, warmup_end, backend)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_sync()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = collections.Counter(
+            f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message))
         admm_us = sum(us for name, (us, _) in rows if "box_admm" in name)
         admm_n = sum(n for name, (_, n) in rows if "box_admm" in name)
         return lines, {
@@ -187,6 +230,9 @@ def main() -> int:
                                          for k, us in stage_us.items() if us},
             "stage_share_of_busy": {k: us / busy_us for k, us in
                                     stage_us.items() if us and busy_us},
+            "host_syncs_per_step": sum(syncs.values()) / sync_steps,
+            "host_sync_sources": {k: v / sync_steps
+                                  for k, v in syncs.most_common(5)},
         }
 
     if args.config == "tank":
