@@ -153,11 +153,35 @@ Phases, each of which fails the run on error:
    the VDP bench with ``reference='sine'``. Gates: 60 launches each, u
    finite within the preset's box, the model and estimator finite, x
    finite but for scenarios escaped as in phase 13, and the float64 kernel
-   vs plain gate of phase 13 on each.
+   vs plain gate of phase 13 on each;
+15. drive the Revise_2 loops, the per-step DARE terminal synthesis with
+   its certificate guard and monitor series, at 8192 scenarios, f32,
+   through the kernel route and the plain route, counts zeroed before
+   each run and read after: ``revise2_duffing_bench_config`` (the JAX
+   bench's ``BENCH_PRESET=revise2_duffing``: N = 20, the SM RLS
+   warm-started from the batch Grams, the MATLAB RK4, the fallback
+   encoder with the state, nlift 10; 200 steps, the switch at 100: 200
+   ``box_admm`` launches, then 0), ``revise2_vdp_bench_config`` (lifted
+   tracking, the full P injected; cut from the bench's 200 steps to 40,
+   the switch at 20) and ``toy1d_bench_config`` (the one-state plant, no
+   synthesis; cut to 60 steps, the switch at 30, where its parameters do
+   not change). Gates: u finite within the preset's box, the model, the
+   estimator and the held certificate (P, K, gamma) finite in every
+   scenario, x finite but for scenarios escaped as in phase 13, the
+   float64 kernel vs plain gate of phase 13 with its floor taken over
+   every round-off realization of the plain route (one ulp of x0, one
+   ulp of the initial A, the ADMM's sums reassociated; the one-ulp-of-x0
+   gate's own count printed beside it), and the float32 batch-mean
+   control quality of x1 against the state reference over the scenarios
+   finite on both routes within 1 % / 5 %.
+   Prints the share of scenario-steps whose certificate passed the
+   guard, each route's warm ms/step in turns and each run's peak device
+   memory.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
-line, a tank_mimo timing JSON line, a VDP JSON line, the card line
+line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
+line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -249,6 +273,16 @@ ESTIMATOR_STEPS = 60
 # steps from one ulp of x0 (CPU rehearsal at B = 256), as the JAX
 # package's own loop does (tests/test_torch_vdp.py)
 EARLY_BATCH, EARLY_TOL = 256, 1e-8
+# phase 15: the Revise_2 benches; revise2_duffing at the bench's 200 steps,
+# revise2_vdp cut to 40 and toy1d to 60 (each step's DARE synthesis is
+# ~6,500 eager operations, ~94 ms a step on the card: the phase must keep
+# the whole run near 480 s). The f64 gate's floor there also takes the
+# plain route's divergence from one ulp of the initial model's A and from
+# its ADMM sums reassociated: the lifted revise2_vdp loop, with the DARE's
+# P (trace up to ~1e6) in Qbar, moves the plain route under its own
+# reassociation 3.7 times past ten times its one-ulp-of-x0 floor (B = 256,
+# 16 f64 steps, H100), so that floor alone cannot bound any kernel
+REVISE2_STEPS = {"revise2_duffing": 200, "revise2_vdp": 40, "toy1d": 60}
 
 
 def fail(msg: str) -> None:
@@ -1197,7 +1231,7 @@ def config_loop(cfg, device, dtype: str = "float32",
     def run(x0=None):
         return run_scenarios(pipe, sc if x0 is None else sc._replace(x0=x0))
 
-    run.pipe, run.x0 = pipe, sc.x0
+    run.pipe, run.x0, run.batch = pipe, sc.x0, sc
     return run
 
 
@@ -1509,24 +1543,49 @@ def phase_general(device, card: str):
          **report, "card": card}), flush=True)
 
 
-def early_f64_gate(make_cfg, device, name: str):
+def early_f64_gate(make_cfg, device, name: str, full_floor: bool = False):
     """Kernel vs plain route of ``make_cfg(backend, steps)`` over
     LOOP_EARLY_STEPS float64 steps at EARLY_BATCH scenarios: each scenario
     and step within EARLY_TOL, or within ten times the plain route's own
     divergence from one ulp of x0 (up, then down) in that scenario up to
-    that step where that is larger. Returns the gate's report."""
+    that step where that is larger. ``full_floor`` (phase 15) widens the
+    floor to every round-off realization of the plain route it tries: one
+    ulp of x0, one ulp of the initial model's A (up, then down) and the
+    plain ADMM with its sums reassociated (``box_admm_reassociated``, the
+    kernel's own kind of difference); the report keeps the one-ulp-of-x0
+    gate's violations beside it. Returns the gate's report."""
     import torch
+    from koopmanx_torch.control import qp
+    from koopmanx_torch.run import run_scenarios
 
-    logs, floors = {}, []
-    for backend in ("pallas", "xla"):
-        run = config_loop(make_cfg(backend, LOOP_EARLY_STEPS), device,
-                          "float64", batch=EARLY_BATCH)
-        logs[backend] = run()[1].x
+    logs, floors = {}, {}
+    real = qp.box_admm
+    routes = [("pallas", "pallas", real), ("xla", "xla", real)]
+    if full_floor:
+        routes.insert(1, ("reassociated", "pallas", box_admm_reassociated))
+    try:
+        for label, backend, solver in routes:
+            qp.box_admm = solver
+            run = config_loop(make_cfg(backend, LOOP_EARLY_STEPS), device,
+                              "float64", batch=EARLY_BATCH)
+            logs[label] = run()[1].x
+    finally:
+        qp.box_admm = real
+    diff = lambda x: (x - logs["xla"]).abs().amax(-1)  # (B, T)
     for target in (9.0, -9.0):
         x0 = torch.nextafter(run.x0, torch.full_like(run.x0, target))
-        floors.append((run(x0)[1].x - logs["xla"]).abs().amax(-1))
-    dx = (logs["pallas"] - logs["xla"]).abs().amax(-1)  # (B, T)
-    floor = torch.maximum(*floors).cummax(dim=1).values
+        floors[f"x0 {target:+}"] = diff(run(x0)[1].x)
+        if full_floor:
+            a0 = run.pipe.model0.A
+            a0 = torch.nextafter(a0, torch.full_like(a0, target))
+            pipe = run.pipe._replace(model0=run.pipe.model0._replace(A=a0))
+            floors[f"A0 {target:+}"] = diff(run_scenarios(pipe,
+                                                          run.batch)[1].x)
+    if full_floor:
+        floors["reassociated"] = diff(logs["reassociated"])
+    dx = diff(logs["pallas"])
+    stack = lambda keys: torch.stack([floors[k] for k in keys]).amax(0)
+    floor = stack(floors).cummax(dim=1).values
     bound = torch.clamp(10.0 * floor, min=EARLY_TOL)
     tight = bound == EARLY_TOL
     report = {"batch": EARLY_BATCH, "steps": LOOP_EARLY_STEPS,
@@ -1535,9 +1594,22 @@ def early_f64_gate(make_cfg, device, name: str):
                   tight.double().mean()),
               "dx_f64_where_held_at_tol": float(dx[tight].max())
               if bool(tight.any()) else None}
+    if full_floor:
+        x0_floor = stack(["x0 +9.0", "x0 -9.0"]).cummax(dim=1).values
+        x0_bound = torch.clamp(10.0 * x0_floor, min=EARLY_TOL)
+        report.update({
+            "floor_f64_by_realization": {k: float(v.max())
+                                         for k, v in floors.items()},
+            "entries": dx.numel(),
+            "entries_past_x0_only_bound": int((dx > x0_bound).sum()),
+            "worst_ratio_to_x0_only_bound": float((dx / x0_bound).max()),
+            # the plain route against itself, its ADMM sums reassociated
+            "reassociated_worst_ratio_to_x0_only_bound": float(
+                (floors["reassociated"] / x0_bound).max()),
+            "worst_ratio_to_bound": float((dx / bound).max())})
     if not bool((dx <= bound).all()):
         fail(f"{name}: float64 kernel and plain loops differ by more than "
-             f"max({EARLY_TOL}, 10 x the one-ulp floor): {report}")
+             f"max({EARLY_TOL}, 10 x the round-off floor): {report}")
     return report
 
 
@@ -1719,6 +1791,103 @@ def phase_estimators(device, card: str):
     return counts
 
 
+def state_reference(cfg) -> float:
+    """The first state channel's reference of a constant-reference run."""
+    return (cfg.reference_state[0] if cfg.reference_state is not None
+            else cfg.reference_value)
+
+
+def phase_revise2(device, card: str):
+    """Phase 15: the Revise_2 benches through both routes, with their
+    gates. Returns the kernel route's launch counts by run."""
+    import torch
+    from koopmanx_torch.configs import (
+        revise2_duffing_bench_config,
+        revise2_vdp_bench_config,
+        toy1d_bench_config,
+    )
+
+    makes = {"revise2_duffing": revise2_duffing_bench_config,
+             "revise2_vdp": revise2_vdp_bench_config,
+             "toy1d": toy1d_bench_config}
+    counts, lines = {}, {}
+    for name, make in makes.items():
+        t0 = time.perf_counter()
+        steps = REVISE2_STEPS[name]
+        runs, logs, report = {}, {}, {}
+        for backend in ("pallas", "xla"):
+            run = runs[backend] = config_loop(make(steps, backend), device)
+            cfg = run.pipe.config
+            zero_counts()
+            (carry, log), cold, mem = run_with_memory(run)
+            got = read_counts()
+            want = steps if backend == "pallas" else 0
+            print(f"phase 15 {name} ({backend}): {cold:.2f} s cold, "
+                  f"launches {got}, peak {mem / 2**30:.3f} GiB", flush=True)
+            if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+                fail(f"{name} {backend} launched {got} in {steps} steps")
+            if backend == "pallas":
+                counts[name] = got
+            escaped, x1_max = check_estimator_loop(
+                carry, log, f"{name} {backend}", steps, cfg.mpc.u_max)
+            synth = cfg.mpc.terminal_synthesis
+            if synth and not all(bool(torch.isfinite(t).all())
+                                 for t in carry.cert):
+                fail(f"{name} {backend}: non-finite held certificate")
+            if synth != (len(carry.cert) == 3):
+                fail(f"{name} {backend}: certificate {len(carry.cert)} "
+                     "leaves")
+            report[backend] = {
+                **escape_report(escaped, x1_max, f"{name} {backend}"),
+                "cold_wall_s": cold, "peak_gib": mem / 2**30,
+                "cert_fresh_share": float(log.cert_fresh.float().mean()),
+                "u_abs_max": float(log.u.abs().max())}
+            logs[backend] = (log, escaped)
+        early = early_f64_gate(lambda b, st: make(st, b), device, name,
+                               full_floor=True)
+        keep = ~(logs["pallas"][1] | logs["xla"][1])
+        ref1 = state_reference(cfg)
+        (mse_k, sse_k), (mse_p, sse_p) = (
+            quality_vs(logs[b][0], keep, ref1) for b in ("pallas", "xla"))
+        for a, b, what in ((mse_k, mse_p, "tracking MSE"),
+                           (sse_k, sse_p, "steady-state error")):
+            if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
+                fail(f"{name} x1 {what}: kernel {a} vs plain {b}")
+        walls = {runs["xla"]: [], runs["pallas"]: []}
+        for fn in (runs["xla"], runs["pallas"], runs["pallas"], runs["xla"]):
+            walls[fn].append(timed(fn)[1])
+        route = lambda r: {"runs_s": walls[r],
+                           "ms_per_step": sum(walls[r]) / 2 / steps * 1e3}
+        lines[name] = {
+            "steps": steps, "switch_step": cfg.switch_step,
+            "nlift": run.pipe.dictionary.nlift,
+            "terminal_synthesis": cfg.mpc.terminal_synthesis,
+            "track_lifted": cfg.mpc.track_lifted,
+            "estimator": type(carry.rls).__name__, "x1_reference": ref1,
+            "kernel_route": {**route(runs["pallas"]), **report["pallas"]},
+            "plain_route": {**route(runs["xla"]), **report["xla"]},
+            "early_f64": early, "scenarios_in_quality": int(keep.sum()),
+            "mse_x1_kernel": mse_k, "mse_x1_plain": mse_p,
+            "sse_x1_kernel": sse_k, "sse_x1_plain": sse_p,
+            "phase_s": time.perf_counter() - t0}
+        print(f"phase 15 {name} " + json.dumps(lines[name]), flush=True)
+    print(json.dumps({"slice": "Revise_2 bench loops, koopmanx_torch",
+                      "batch": BATCH, "horizon": HORIZON, "dtype": "float32",
+                      "quality_rtol": QUALITY_RTOL, **{
+                          name: {k: line[k] for k in (
+                              "steps", "kernel_route", "plain_route")}
+                          for name, line in lines.items()},
+                      "card": card}), flush=True)
+    return counts
+
+
+def quality_vs(log, keep, ref1: float, tail: int = 50):
+    """Batch-mean tracking MSE and steady-state error of x1 against the
+    state reference ``ref1`` over the scenarios ``keep``."""
+    err = log.x[keep, :, 0] - ref1
+    return float((err ** 2).mean()), float(err[:, -tail:].abs().mean())
+
+
 def replay_resets(residual, mult: float, beta: float = 0.98):
     """Reset triggers of ``engine.core.change_reset``, replayed from the
     logged pre-update residuals (B, T)."""
@@ -1892,7 +2061,12 @@ def main() -> int:
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
     t14 = time.perf_counter()
     estimator_counts = phase_estimators(device, card)
-    print(f"phase 14: {time.perf_counter() - t14:.1f} s; phases 1-14: "
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+
+    # ---- 15. the Revise_2 loops (per-step DARE terminal synthesis) ----
+    t15 = time.perf_counter()
+    revise2_counts = phase_revise2(device, card)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s; phases 1-15: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
@@ -1904,7 +2078,9 @@ def main() -> int:
         "tank_mimo bench (phase 11)": mimo_counts["box_admm"],
         "vdp bench (phase 13)": vdp_counts["box_admm"],
         **{f"{name} (phase 14)": c["box_admm"]
-           for name, c in estimator_counts.items()}}
+           for name, c in estimator_counts.items()},
+        **{f"{name} bench (phase 15)": c["box_admm"]
+           for name, c in revise2_counts.items()}}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

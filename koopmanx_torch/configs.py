@@ -1,8 +1,10 @@
 """The configuration surface (a copy of ``koopmanx/configs.py:18-299``, the
+Revise_2 presets ``revise2_duffing`` / ``revise2_vdp`` at :302-362, the
 ``duffing_rbf``/``duffing_rff`` presets at :365-413, ``tank3`` at
 :416-452, ``tank_mimo`` at :454-482, ``pendulum`` at :485-515,
-``duffing_rbf128`` at :517-547, ``vanderpol_rbf`` at :570-577 and
-``vanderpol_selftrained`` at :604-628).
+``duffing_rbf128`` at :517-547, ``toy1d`` at :550-567, ``vanderpol_rbf``
+at :570-577 and the self-trained presets at :580-650): every preset of
+the JAX package.
 
 The port keeps its own copy of the dataclasses so that it imports nothing
 of ``koopmanx``. Field names and defaults are the JAX package's; fields of
@@ -58,7 +60,7 @@ class MPCConfig:
     track_lifted: bool = False
     cy_index: Optional[int] = None
     terminal_synthesis: bool = False
-    terminal_mode: str = "dare"
+    terminal_mode: str = "dare"  # 'lmi' (ROADMAP item 14b) raises
     state_bounds: Optional[Tuple[float, float]] = None
     markov: str = "dag"  # prediction-matrix build: dag | scan
     qp_iters: int = 60
@@ -361,18 +363,130 @@ def vanderpol_selftrained_preset() -> RunConfig:
     return cfg
 
 
+def duffing_selftrained_preset() -> RunConfig:
+    """The duffing scenario controlled by the encoder trained in the repo
+    (``artifacts/duffing_kmae_refscale_encoder.mat``): ``duffing`` with
+    that lift, no reference artifact involved."""
+    cfg = duffing_nn_preset()
+    cfg.lift.weights_path = "artifacts/duffing_kmae_refscale_encoder.mat"
+    return cfg
+
+
+def pendulum_selftrained_preset() -> RunConfig:
+    """The pendulum scenario with the encoder trained in the repo
+    (``artifacts/pendulum_kmae_refscale_s1_encoder.mat``, nlift 8,
+    normalized) in place of the thinplate RBF lift."""
+    cfg = pendulum_preset()
+    cfg.lift = LiftConfig(
+        kind="mlp", nlift=8, normalize=True,
+        weights_path="artifacts/pendulum_kmae_refscale_s1_encoder.mat",
+    )
+    return cfg
+
+
+def revise2_duffing_preset() -> RunConfig:
+    """Revise_2/Koopman_update.m: the state-augmented MLP lift with zero
+    offset, [x; g(x) - g(0)] (:67), N = 10, Q = 10 I2, R = 0.01
+    (:115-117), u in [-2, 2] (:215), the SM RLS warm-started from the
+    batch Grams (:264-265), the per-step terminal synthesis (:314-381, the
+    DARE certificate), 100 steps, the MATLAB RK4. The weights are named
+    relative to the reference tree; where they are absent,
+    ``run.build_dictionary`` falls back to
+    ``artifacts/duffing_kmae_encoder.mat`` (8 outputs, nlift 10 with the
+    state), as the JAX package does."""
+    return RunConfig(
+        system="duffing",
+        steps=100,
+        switch_step=100,
+        integrator="rk4_matlab",
+        mpc=MPCConfig(
+            horizon=10, q_weight=10.0, r_weight=0.01, u_min=-2, u_max=2,
+            terminal_synthesis=True,
+        ),
+        update=UpdateConfig(
+            mode="rls", warm_start_from_batch=True, c_pairing="same"
+        ),
+        lift=LiftConfig(
+            kind="mlp", nlift=10, state_augmented=True, zero_offset=True,
+            weights_path="Revise_2/duffing_weights.mat",
+        ),
+    )
+
+
+def revise2_vdp_preset() -> RunConfig:
+    """VDP_Revise_2/Koopman_update_Tracking_Lift.m: lifted tracking
+    (C = Cy = I, :99, :106), Q = 100 I / R = 1e-4 (:109-110), the encoded
+    set point [-1, 0] (:111) as the certificate's anchor, the FULL P
+    injected as the terminal block (:283), u in [-6, 6], 1000 steps,
+    x0 = [1, 1] (:118), the live switch at step 100 under the MATLAB RK4,
+    the zero-offset MLP lift (:65-66), the square-root RLS (1e5 priors,
+    ridge 1e-2), the per-step DARE certificate. The weights fall back to
+    ``artifacts/vanderpol_kmae_encoder.mat`` (nlift 8), as in the JAX
+    package."""
+    return RunConfig(
+        system="vanderpol",
+        steps=1000,
+        switch_step=100,
+        integrator="rk4_matlab",
+        reference_state=(-1.0, 0.0),
+        reference_value=-1.0,
+        x0=(1.0, 1.0),
+        mpc=MPCConfig(
+            horizon=10, q_weight=100.0, r_weight=1e-4, u_min=-6, u_max=6,
+            track_lifted=True, terminal_synthesis=True,
+        ),
+        update=UpdateConfig(
+            mode="rls_sqrt", ridge=1e-2, c_ab=1e5, c_c=1e5, c_pairing="same"
+        ),
+        lift=LiftConfig(
+            kind="mlp", nlift=8, zero_offset=True, normalize=True,
+            weights_path="VDP_Revise_2/Good_VDP.mat",
+        ),
+    )
+
+
+def toy1d_preset() -> RunConfig:
+    """One_Dimensional_Toy_Example_Continuous_System.m: the one-state plant
+    under the MATLAB RK4, the state-augmented normalized MLP lift
+    [x; Enc(x)] (:25-27), N = 10, |u| <= 1, r = 0.5, the square-root RLS;
+    2000 one-step data trajectories in [-1, 1]. No ``toy1d`` artifact
+    ships, so the lift falls back to a random init, as in the JAX
+    package."""
+    return RunConfig(
+        system="toy1d",
+        steps=500,
+        switch_step=10**9,
+        integrator="rk4_matlab",
+        mpc=MPCConfig(horizon=10, q_weight=100.0, r_weight=1e-4, u_min=-1,
+                      u_max=1),
+        update=UpdateConfig(mode="rls_sqrt", ridge=1e-2, c_pairing="same"),
+        lift=LiftConfig(
+            kind="mlp", nlift=8, state_augmented=True, normalize=True,
+            weights_path="One_Dimensional_System22.mat",
+        ),
+        data=DataConfig(n_step=1, n_traj=2000, u_range=(-1.0, 1.0),
+                        x0_range=(-1.0, 1.0)),
+        reference_value=0.5,
+    )
+
+
 PRESETS = {
     "duffing": duffing_nn_preset,
+    "duffing_selftrained": duffing_selftrained_preset,
+    "vanderpol_selftrained": vanderpol_selftrained_preset,
+    "pendulum_selftrained": pendulum_selftrained_preset,
     "duffing_rbf": duffing_rbf_preset,
     "duffing_rbf128": duffing_rbf128_preset,
     "duffing_rff": duffing_rff_preset,
+    "vanderpol_rbf": vanderpol_rbf_preset,
+    "vanderpol": vdp_lifted_preset,
     "tank": tank_preset,
     "tank3": tank3_preset,
     "tank_mimo": tank_mimo_preset,
     "pendulum": pendulum_preset,
-    "vanderpol": vdp_lifted_preset,
-    "vanderpol_rbf": vanderpol_rbf_preset,
-    "vanderpol_selftrained": vanderpol_selftrained_preset,
+    "revise2_duffing": revise2_duffing_preset,
+    "revise2_vdp": revise2_vdp_preset,
+    "toy1d": toy1d_preset,
 }
 
 
@@ -460,3 +574,32 @@ def vdp_rbf_bench_config(steps: int = 200, qp_backend: str = "pallas"
     method. The bench samples its 8192 scenarios with x0 ~ U[-2, 2]^2 and
     param_scale 0.15."""
     return _bench_overrides(vanderpol_rbf_preset(), steps, qp_backend)
+
+
+def revise2_duffing_bench_config(steps: int = 200,
+                                 qp_backend: str = "pallas") -> RunConfig:
+    """``revise2_duffing_preset`` with ``bench.py``'s overrides
+    (``BENCH_PRESET=revise2_duffing``): f32, N = 20 (B1 at nx = 20), the
+    switch at ``steps // 2`` and 50x50 data; the per-step DARE terminal
+    synthesis, the SM RLS warm-started from the batch Grams, the MATLAB
+    RK4, the fallback encoder with the state (nlift 10). The bench samples
+    its 8192 scenarios with x0 ~ U[-2, 2]^2 and param_scale 0.15."""
+    return _bench_overrides(revise2_duffing_preset(), steps, qp_backend)
+
+
+def revise2_vdp_bench_config(steps: int = 200, qp_backend: str = "pallas"
+                             ) -> RunConfig:
+    """``revise2_vdp_preset`` with ``bench.py``'s overrides
+    (``BENCH_PRESET=revise2_vdp``): f32, N = 20, the switch at
+    ``steps // 2``, 50x50 data; lifted tracking (py = nlift = 8) with the
+    full DARE P injected, the square-root RLS. x0 ~ U[-2, 2]^2 in the
+    bench (the preset's own x0 = [1, 1] is its single-run start)."""
+    return _bench_overrides(revise2_vdp_preset(), steps, qp_backend)
+
+
+def toy1d_bench_config(steps: int = 200, qp_backend: str = "pallas"
+                       ) -> RunConfig:
+    """``toy1d_preset`` with ``bench.py``'s overrides
+    (``BENCH_PRESET=toy1d``): f32, N = 20, 50x50 data in [-1, 1], the
+    switch at ``steps // 2`` (the plant has none: theta1 = theta0)."""
+    return _bench_overrides(toy1d_preset(), steps, qp_backend)

@@ -1,7 +1,8 @@
 """Condensed (dense) MPC QP construction (counterpart of
 ``koopmanx/control/condensed.py``: ``prediction_matrices`` :53-93 with the
 'dag' :223-246 and 'scan' :37-50 builds, ``augment_delta_u`` :96-112,
-``weight_bar`` :115-123 and ``condensed_qp`` :126-170, box and general).
+``weight_bar`` :115-123 with its terminal-block override and
+``condensed_qp`` :126-170, box and general).
 
 All functions take a leading scenario axis (models (B, N, N) etc.).
 
@@ -112,10 +113,22 @@ def block_diag_repeat(block: Tensor, horizon: int) -> Tensor:
     return out.reshape(block.shape[:-2] + (horizon * k, horizon * k))
 
 
-def weight_bar(q_block: Tensor, horizon: int) -> Tensor:
-    """``Qbar = kron(I_N, Q)`` (the terminal-block override of terminal
-    synthesis is not ported: ``EngineConfig.terminal_synthesis`` raises)."""
-    return block_diag_repeat(q_block, horizon)
+def weight_bar(q_block: Tensor, horizon: int,
+               terminal: Optional[Tensor] = None) -> Tensor:
+    """``Qbar = kron(I_N, Q)``, its last (py, py) block replaced by
+    ``terminal`` when given (``Revise_2/Koopman_update.m:379-381`` injects
+    C P C', ``VDP_Revise_2`` the full P). Under terminal synthesis the
+    terminal block is per scenario, so Qbar is (B, N*py, N*py) even where
+    ``q_block`` is shared."""
+    qbar = block_diag_repeat(q_block, horizon)
+    if terminal is None:
+        return qbar
+    py = q_block.shape[-1]
+    shape = torch.broadcast_shapes(qbar.shape, terminal.shape[:-2] + (1, 1))
+    if qbar.shape != shape:  # a shared Q: one copy per scenario
+        qbar = qbar.expand(shape).clone()
+    qbar[..., -py:, -py:] = terminal
+    return qbar
 
 
 def condensed_qp(pred: PredictionMatrices, z0: Tensor, yr: Tensor,

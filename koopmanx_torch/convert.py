@@ -24,8 +24,9 @@ This module imports no JAX. ``arrays`` is a dict:
   bfloat16, so a compressed ring arrives in float32 and is cast back,
   which is exact for values the storage dtype holds;
 - ``"params"``: ``{"q_block", "r_block", "u_min", "u_max"}`` and optionally
-  ``"cy"``, ``"applied_min"``, ``"applied_max"``, ``"x_min"``, ``"x_max"``
-  and ``"ref_state"`` (the ``MPCParams`` arrays);
+  ``"cy"``, ``"applied_min"``, ``"applied_max"``, ``"terminal"``,
+  ``"q_lift"`` (the terminal synthesis's lifted weight), ``"x_min"``,
+  ``"x_max"`` and ``"ref_state"`` (the ``MPCParams`` arrays);
 - ``"x_init"`` (optional): the initial plant state; the plant's default
   (``System.x_init`` on every channel) where absent.
 """
@@ -114,7 +115,8 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
         q_block=t(p["q_block"]), r_block=t(p["r_block"]),
         u_min=t(p["u_min"]), u_max=t(p["u_max"]), cy=opt("cy"),
         applied_min=opt("applied_min"), applied_max=opt("applied_max"),
-        x_min=opt("x_min"), x_max=opt("x_max"), ref_state=opt("ref_state"),
+        terminal=opt("terminal"), q_lift=opt("q_lift"), x_min=opt("x_min"),
+        x_max=opt("x_max"), ref_state=opt("ref_state"),
     )
     x_init = arrays.get("x_init")
     x_init = t((system.x_init,) * system.n if x_init is None else x_init)

@@ -10,7 +10,10 @@
   :189-310): upper-triangular factors of the [z; u] and z Grams, updated
   by Givens rotations, the model extracted with two triangular solves.
 
-Every function takes a leading scenario axis.
+Every function takes a leading scenario axis. Each estimator also has
+its warm start from the batch Grams of the training snapshots
+(``*_init_from_grams``, ``warm_start_from_batch``;
+``Revise_2/Koopman_update.m:264-265``).
 
 Precision: this is estimator math and must run in full float32 (the JAX
 package pins ``precision='highest'``); the port's entry points turn TF32
@@ -23,7 +26,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from ..ops.linalg import spd_inverse
+from ..ops.linalg import cholesky, spd_inverse
 from ..types import LinearModel, RLSState
 from .batch import GramStats, pinv
 
@@ -47,6 +50,14 @@ def rls_init(nlift: int, m: int, n: int, c_ab: float = 1e4, c_c: float = 1e2,
         barX=torch.zeros((n, nlift), **kw),
         barQ=c_c * torch.eye(nlift, **kw),
     )
+
+
+def rls_init_from_grams(stats: GramStats) -> RLSState:
+    """Warm start from the batch statistics (``rls.py:79-88``):
+    ``K_A = Zy' V``, ``invG = pinv(V' V)``, ``barX = X' Zx``,
+    ``barQ = pinv(Zx' Zx)``, with the JAX package's pinv cutoff."""
+    return RLSState(K_A=stats.syv, invG=pinv(stats.gvv), barX=stats.sxz,
+                    barQ=pinv(stats.gzz))
 
 
 def _sm_downdate(inv_g: Tensor, v: Tensor, lam: float) -> Tensor:
@@ -136,6 +147,12 @@ def gram_rls_init(nlift: int, m: int, n: int, c_ab: float = 1e4,
     )
 
 
+def gram_rls_init_from_grams(stats: GramStats) -> GramRLSState:
+    """Warm start from the batch Grams themselves (``rls.py:351-352``)."""
+    return GramRLSState(K_A=stats.syv, g=stats.gvv, barX=stats.sxz,
+                        q=stats.gzz)
+
+
 def gram_rls_update(state: GramRLSState, z: Tensor, u: Tensor,
                     z_next: Tensor, x_target: Tensor, lam: float = 1.0
                     ) -> GramRLSState:
@@ -212,6 +229,19 @@ def sqrt_rls_init(nlift: int, m: int, n: int, c_ab: float = 1e4,
         r_q=(1.0 / c_c) ** 0.5 * torch.eye(nlift, **kw),
         count=torch.zeros((), dtype=torch.int32, device=device),
     )
+
+
+def sqrt_rls_init_from_grams(stats: GramStats) -> SqrtRLSState:
+    """Warm start from the batch Grams' upper Cholesky factors
+    (``rls.py:240-248``); a Gram that is not positive definite gives NaN
+    factors, as in the JAX package (``ops/linalg.cholesky``)."""
+    count = torch.zeros(stats.syv.shape[:-2], dtype=torch.int32,
+                        device=stats.syv.device)
+    return SqrtRLSState(K_A=stats.syv,
+                        r_g=cholesky(stats.gvv).transpose(-1, -2),
+                        barX=stats.sxz,
+                        r_q=cholesky(stats.gzz).transpose(-1, -2),
+                        count=count)
 
 
 def _ridge_vector(count: Tensor, d: int, ridge: float, like: Tensor) -> Tensor:

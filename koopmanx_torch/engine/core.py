@@ -1,8 +1,9 @@
 """The per-step MPC body (counterpart of ``koopmanx/engine/core.py``).
 
-The port has ``make_control_solver`` (:383-729) for the MPC controller
-without terminal synthesis: lifted-space tracking (:416-422); the du
-formulation (:423-425); the
+The port has ``make_control_solver`` (:383-729) for the MPC controller:
+lifted-space tracking (:416-422); the du formulation (:423-425); the
+per-step DARE terminal synthesis with its certificate guard (:429-493,
+``terminal_mode='dare'``) and ``initial_cert`` (:364-380); the
 applied-input window folded into the first decision block's bounds
 (``applied_bounds='box'``, :519-584) or as explicit rows
 (``applied_bounds='rows'``, :519-539); the state-box rows through F1/F2
@@ -40,6 +41,7 @@ from ..control.qp import (
     make_box_qp_solver,
     solve_qp,
 )
+from ..control.terminal import lyapunov_value, synthesize_terminal
 from ..edmd.rls import (
     gram_rls_model,
     gram_rls_update,
@@ -75,6 +77,8 @@ class MPCParams(NamedTuple):
     cy: Optional[Tensor] = None  # (py, p) output selector; None = track C z
     applied_min: Optional[Tensor] = None  # (m,) du mode: bounds on u itself
     applied_max: Optional[Tensor] = None
+    terminal: Optional[Tensor] = None  # (py, py) static terminal block
+    q_lift: Optional[Tensor] = None  # (nlift, nlift) terminal synthesis's Q
     x_min: Optional[Tensor] = None  # (N*py,) stacked state box (Revise_2)
     x_max: Optional[Tensor] = None
     ref_state: Optional[Tensor] = None  # (n,) state-space reference anchor
@@ -132,7 +136,8 @@ class EngineConfig:
     # or its estimated spectral radius reaches the bound (0 disables)
     f_clamp: float = 1e5
     model_guard: float = 3.0
-    terminal_synthesis: bool = False
+    terminal_synthesis: bool = False  # per-step terminal synthesis (Revise_2)
+    terminal_mode: str = "dare"  # 'dare'; 'lmi' is ROADMAP item 14b
     state_bounds: bool = False
     drift_norm: str = "fro"
 
@@ -154,19 +159,23 @@ def check_supported(cfg: EngineConfig) -> None:
     """Refuse the options whose paths the port has not reached yet."""
     todo = [
         (cfg.controller != "mpc", "controller='lqr'", "item 15"),
-        (cfg.terminal_synthesis, "terminal_synthesis", "item 14"),
+        (cfg.terminal_synthesis and cfg.terminal_mode == "lmi",
+         "terminal_mode='lmi' (the LMI terminal)", "item 14b"),
         (cfg.qp_kkt_refine > 0, "qp_kkt_refine (carried KKT inverse)",
          "L3"),
         (cfg.qp_kkt_bf16, "qp_kkt_bf16", "L3"),
         (cfg.drift_norm != "fro", f"drift_norm={cfg.drift_norm!r}",
          "item 17"),
-        (cfg.integrator != "rk4", f"integrator={cfg.integrator!r}", "L1"),
     ]
     for bad, what, item in todo:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP queue A, {item})"
             )
+    if cfg.terminal_mode not in ("dare", "lmi"):
+        raise ValueError(f"unknown terminal_mode {cfg.terminal_mode!r}")
+    if cfg.integrator not in ("rk4", "rk4_matlab"):
+        raise ValueError(f"unknown integrator {cfg.integrator!r}")
     if cfg.update not in UPDATE_MODES:
         raise ValueError(f"unknown update {cfg.update!r}")
     if cfg.qp_warm_start not in ("primal", "full", "off"):
@@ -215,10 +224,38 @@ def _select(pred: Tensor, new, old):
 
 
 class ControlDecision(NamedTuple):
+    """What :func:`make_control_solver` produces for one step; the fields
+    from ``cert`` on feed the carry's certificate and the Revise_2 monitor
+    block (``core.py:341-361``), and are ``()`` / None when synthesis is
+    off."""
+
     u_applied: Tensor  # (B, m)
     warm_x: Tensor  # (B, N*m) shifted, sanitized primal warm start
     sol: QPSolution  # sol.y is (B, dual_dim)
     r_window: Tensor  # (horizon, py)
+    cert: Any = ()  # guarded (P, K, gamma), or () when synthesis is off
+    cert_ok: Optional[Tensor] = None  # (B,) this step's synthesis passed
+    p_lyap: Optional[Tensor] = None  # (B, nlift, nlift) the held P
+    cert_k: Optional[Tensor] = None  # (B, m, nlift), u = K z
+    cert_gamma: Optional[Tensor] = None  # (B,)
+    ref_full: Optional[Tensor] = None  # (B, n) the state-space anchor
+    terminal: Optional[Tensor] = None  # (B, py, py) the injected block
+    c_for_term: Optional[Tensor] = None  # output map of the injection
+
+
+def initial_cert(cfg: EngineConfig, params: MPCParams, nlift: int, m: int,
+                 batch: int, dtype, device) -> Any:
+    """The certificate before the first synthesis passes the guard
+    (``core.py:364-380``): P = Q_lift (the DARE iterate's start), K = 0,
+    gamma = 1, per scenario; ``()`` when synthesis is off."""
+    if not cfg.terminal_synthesis:
+        return ()
+    kw = dict(dtype=dtype, device=device)
+    p_seed = (params.q_lift if params.q_lift is not None
+              else torch.eye(nlift, **kw))
+    return (p_seed.to(dtype).expand(batch, nlift, nlift),
+            torch.zeros((batch, m, nlift), **kw),
+            torch.ones((batch,), **kw))
 
 
 def lowrank_kkt_inverse(f2: Tensor, p: Tensor, q_block: Tensor,
@@ -273,19 +310,72 @@ def dual_dim(cfg: EngineConfig, params: MPCParams, m: int) -> int:
 
 
 def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
-                        m: int):
-    """Model -> applied input for a batch of scenarios: condensed QP build
-    (``duffing.py:756-800``, ``Tank_System.m:118-158``), box ADMM (or the
-    general-inequality ADMM when rows are added), projection, the du
-    accumulator (``Tank_System.m:192``) and the warm shift."""
+                        m: int, dictionary: Optional[Dictionary] = None):
+    """Model -> applied input for a batch of scenarios: the terminal
+    synthesis and its certificate guard (``Revise_2/Koopman_update.m:
+    331-369``; needs the engine's ``dictionary`` for the anchor), condensed
+    QP build (``duffing.py:756-800``, ``Tank_System.m:118-158``), box ADMM
+    (or the general-inequality ADMM when rows are added), projection, the
+    du accumulator (``Tank_System.m:192``) and the warm shift."""
     check_supported(cfg)
+    if cfg.terminal_synthesis and dictionary is None:
+        raise ValueError("terminal synthesis anchors its certificate at "
+                         "psi(x - r): pass the engine's dictionary")
     horizon = cfg.horizon
     qp_cfg = cfg.qp_config
     box_solver = make_box_qp_solver(qp_cfg, backend=cfg.qp_backend)
 
+    def synthesis(params: MPCParams, model: LinearModel, cert, x: Tensor,
+                  step: int):
+        """The DARE certificate of each scenario's (online-updated) model,
+        held per scenario against the previous one where it fails the
+        guard: P, K and gamma finite, V at the anchor psi(x - r) >= 0 and
+        gamma > 0 (``core.py:429-493``). Returns the held certificate, the
+        guard's verdict, the anchor state and the injected terminal block
+        with its output map."""
+        n = model.C.shape[-2]
+        if params.ref_state is not None:
+            ref_full = params.ref_state
+        else:
+            r0 = ref_fn(step)[0]
+            k = min(r0.shape[-1], n)
+            ref_full = torch.zeros((n,), dtype=x.dtype, device=x.device)
+            ref_full[:k] = r0[:k]
+        ref_full = ref_full.expand(x.shape)
+        tc = synthesize_terminal(model, params.q_lift, params.r_block)
+        # dlqr gives u = -K z; the certificate holds the reference's u = K z
+        new = (tc.p, -tc.k, tc.gamma)
+        psi = dictionary(x - ref_full)
+        v_anchor = lyapunov_value(tc.p, psi)
+        ok = _tree_finite(new) & (v_anchor >= 0) & (tc.gamma > 0)
+        held = tuple(torch.where(ok.reshape(ok.shape + (1,) * (a.dim() - 1)),
+                                 a, b) for a, b in zip(new, cert))
+        if cfg.track_lifted:
+            # the tracked output is z itself: inject the FULL P
+            # (VDP_Revise_2/Koopman_update_Tracking_Lift.m:283)
+            c_term = torch.eye(model.A.shape[-1], dtype=x.dtype,
+                               device=x.device)
+            terminal = held[0]
+        else:
+            c_term = model.C if params.cy is None else params.cy @ model.C
+            terminal = c_term @ held[0] @ c_term.transpose(-1, -2)
+        return held, ok, ref_full, terminal, c_term
+
     def control_solve(params: MPCParams, model: LinearModel, z: Tensor,
-                      u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: int
+                      u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: int,
+                      cert: Any = (), x: Optional[Tensor] = None
                       ) -> ControlDecision:
+        """``cert`` and the plant state ``x`` are read under terminal
+        synthesis only."""
+        revise2 = {}
+        terminal = params.terminal
+        if cfg.terminal_synthesis:
+            held, ok, ref_full, terminal, c_term = synthesis(
+                params, model, cert, x, step)
+            revise2 = dict(cert=held, cert_ok=ok, p_lyap=held[0],
+                           cert_k=held[1], cert_gamma=held[2],
+                           ref_full=ref_full, terminal=terminal,
+                           c_for_term=c_term)
         # lifted-space tracking (vanderpol.py:456-459): the tracked output
         # is z itself, so the predictor's C is the identity
         # (VDP_Revise_2/...m:99: C = eye(Nlift))
@@ -299,7 +389,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             z_qp = torch.cat([z, u_prev], dim=-1)
         else:
             z_qp = z
-        qbar = weight_bar(params.q_block, horizon)
+        qbar = weight_bar(params.q_block, horizon, terminal)
         rbar = block_diag_repeat(params.r_block, horizon)
         pred = prediction_matrices(model, horizon, params.cy, cfg.markov)
         if cfg.f_clamp > 0.0:
@@ -358,7 +448,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             n_out = pred.f2.shape[-2]  # N*py
             if (cfg.qp_kkt_lowrank and cfg.qp_kkt_refine == 0
                     and cfg.qp_backend == "xla"
-                    and not cfg.terminal_synthesis
+                    and terminal is None
                     and n_out < horizon * m):
                 kkt_inv = lowrank_kkt_inverse(pred.f2, qp.P, params.q_block,
                                               params.r_block, cfg)
@@ -391,7 +481,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             nan=0.0, posinf=0.0, neginf=0.0,
         )
         return ControlDecision(u_applied=u_applied, warm_x=warm_next,
-                               sol=sol, r_window=r_window)
+                               sol=sol, r_window=r_window, **revise2)
 
     return control_solve
 

@@ -2,9 +2,10 @@
 
 One control step for every scenario at once:
 
-  encode -> condensed QP -> box ADMM -> apply input (or accumulate du)
-  -> plant step -> re-encode -> online update of [A B] and C (square-root
-  RLS, or the window's ring and refit) -> guard -> log
+  encode -> (terminal synthesis + certificate guard) -> condensed QP ->
+  box ADMM -> apply input (or accumulate du) -> plant step -> re-encode
+  -> online update of [A B] and C -> guard -> log, with the Revise_2
+  monitor series under terminal synthesis
 
 JAX ran one step per scenario under ``vmap`` inside a ``lax.scan``; here
 every tensor carries the scenario axis first and time is a Python loop.
@@ -16,6 +17,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 from torch import Tensor
 
+from ..control.terminal import quad_form
 from ..lifts.base import Dictionary
 from ..systems.base import System, as_params, make_step, make_switch_schedule
 from ..types import LinearModel
@@ -24,6 +26,7 @@ from .core import (
     MPCParams,
     change_reset,
     dual_dim,
+    initial_cert,
     make_control_solver,
     make_estimator_update,
 )
@@ -40,10 +43,17 @@ class LoopCarry(NamedTuple):
     warm_x: Tensor  # (B, N*m) QP primal warm start
     warm_y: Any  # (B, dual_dim) QP dual warm start under qp_warm_start='full'
     res_ema: Tensor  # (B,) running residual average (change detection)
+    # the last certificate (P, K, gamma) that passed the guard, per
+    # scenario, under terminal synthesis; () otherwise
+    cert: Any = ()
 
 
 class StepLog(NamedTuple):
-    """Per-step logs, stacked to (B, T, ...) (the non-Revise_2 fields)."""
+    """Per-step logs, stacked to (B, T, ...). The Lyapunov value and the
+    Revise_2 monitor series (``loop.py:86-108``) are zeros, and
+    ``cert_fresh`` all True, unless terminal synthesis runs; then every
+    monitor reads the PRE-update model, as the reference logs before its
+    RLS block (Revise_2/Koopman_update.m:251-254)."""
 
     x: Tensor
     u: Tensor
@@ -53,10 +63,66 @@ class StepLog(NamedTuple):
     drift_c: Tensor
     residual: Tensor
     qp_primal_res: Tensor
+    lyapunov: Tensor  # V = psi(x - r)' P psi(x - r) (:382-384)
+    gamma: Tensor  # the certificate's level (:369)
+    eps_state: Tensor  # ||x+ - C(Az + Bu)|| (:253)
+    eps_op: Tensor  # ||z+ - (Az + Bu)|| / ||z|| (:254)
+    compensator: Tensor  # (m,) K (z+ - (Az + Bu)) (:251)
+    gamma_margin: Tensor  # gamma - (V - e' CPC' e); gamma - V if lifted
+    compare_state: Tensor  # u'Ru - (A^N N psi(e))' P (A^N N psi(e)) (:386)
+    minus_set: Tensor  # z'Q_lift z - |2 z+' P (z+ - (Az + Bu))| (:374)
+    ellipse: Tensor  # (py, py) the terminal block / gamma (:521-535)
+    cert_fresh: Tensor  # bool: this step's synthesis passed the guard
+
+
+REVISE2_FIELDS = StepLog._fields[8:]
 
 
 def _matvec(a: Tensor, v: Tensor) -> Tensor:
     return (a @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def revise2_monitors(dictionary: Dictionary, cfg: EngineConfig,
+                     params: MPCParams, dec, model: LinearModel, x: Tensor,
+                     z: Tensor, u: Tensor, x_next: Tensor, z_next: Tensor):
+    """The Revise_2 per-step monitor series of ``loop.py:187-235`` on the
+    PRE-update ``model`` and the held certificate of ``dec``, as a dict of
+    StepLog fields (``cert_fresh`` aside), each with a leading scenario
+    axis."""
+    p, gamma = dec.p_lyap, dec.cert_gamma
+    psi_err = dictionary(x - dec.ref_full)
+    lyap = quad_form(psi_err, p, psi_err)
+    z_pred = _matvec(model.A, z) + _matvec(model.B, u)
+    res_vec = z_next - z_pred
+    e_pred = x_next - _matvec(model.C, z_pred)
+    if cfg.track_lifted:
+        # C = I: the output-space term of :385 coincides with V, so log
+        # the ellipsoid membership margin gamma - V
+        g_margin = gamma - lyap
+    else:
+        x_err = x - dec.ref_full
+        e_out = x_err if params.cy is None else _matvec(params.cy, x_err)
+        g_margin = gamma - (lyap - quad_form(e_out, dec.terminal, e_out))
+    # Compare_State (:386): u'Ru against the N-step amplified prediction
+    # error under the terminal cost
+    a_pow = torch.linalg.matrix_power(model.A, cfg.horizon)
+    amp = _matvec(a_pow, dictionary(e_pred)) * cfg.horizon
+    return dict(
+        lyapunov=lyap,
+        gamma=gamma,
+        eps_state=torch.linalg.vector_norm(e_pred, dim=-1),
+        # the Frobenius norm of the rank-one res_vec z' / ||z||^2
+        # (epsilon_Decomposition, :254)
+        eps_op=torch.linalg.vector_norm(res_vec, dim=-1) / torch.clamp(
+            torch.linalg.vector_norm(z, dim=-1), min=1e-30),
+        compensator=_matvec(dec.cert_k, res_vec),
+        gamma_margin=g_margin,
+        compare_state=(quad_form(u, params.r_block, u)
+                       - quad_form(amp, p, amp)),
+        minus_set=quad_form(z, params.q_lift, z)
+        - torch.abs(2.0 * quad_form(z_next, p, res_vec)),
+        ellipse=dec.terminal / torch.clamp(gamma, min=1e-30)[..., None, None],
+    )
 
 
 def make_closed_loop(system: System, dictionary: Dictionary,
@@ -67,14 +133,14 @@ def make_closed_loop(system: System, dictionary: Dictionary,
     be shared scalars (None = the system's nominal and switched values)."""
     plant_step = make_step(system, cfg.h, cfg.integrator)
     m = system.m
-    control_solve = make_control_solver(cfg, ref_fn, m)
+    control_solve = make_control_solver(cfg, ref_fn, m, dictionary)
     estimator_update = make_estimator_update(dictionary, cfg)
 
     def one_step(params, carry: LoopCarry, step: int, theta_sched):
         x, model = carry.x, carry.model
         z = dictionary(x)
         dec = control_solve(params, model, z, carry.u_applied, carry.warm_x,
-                            carry.warm_y, step)
+                            carry.warm_y, step, carry.cert, x)
         u_applied = dec.u_applied
 
         x_next = plant_step(x, u_applied, theta_sched(step))
@@ -104,8 +170,9 @@ def make_closed_loop(system: System, dictionary: Dictionary,
             warm_x=dec.warm_x,
             warm_y=dec.sol.y if cfg.qp_warm_start == "full" else carry.warm_y,
             res_ema=res_ema,
+            cert=dec.cert,
         )
-        log = StepLog(
+        log = dict(
             x=x,
             u=u_applied,
             r=dec.r_window[0].expand(x.shape[0], -1),
@@ -115,6 +182,10 @@ def make_closed_loop(system: System, dictionary: Dictionary,
             residual=residual,
             qp_primal_res=dec.sol.primal_res,
         )
+        if cfg.terminal_synthesis:
+            log.update(revise2_monitors(dictionary, cfg, params, dec, model,
+                                        x, z, u_applied, x_next, z_next),
+                       cert_fresh=dec.cert_ok)
         return new_carry, log
 
     def closed_loop(params: MPCParams, x0: Tensor, model0: LinearModel,
@@ -135,14 +206,27 @@ def make_closed_loop(system: System, dictionary: Dictionary,
             warm_y=(zeros(dual_dim(cfg, params, m))
                     if cfg.qp_warm_start == "full" else ()),
             res_ema=torch.zeros((batch,), dtype=dtype, device=dev),
+            cert=initial_cert(cfg, params, dictionary.nlift, m, batch,
+                              dtype, dev),
         )
         logs = []
         with torch.inference_mode():
             for step in range(cfg.steps):
                 carry, log = one_step(params, carry, step, theta_sched)
                 logs.append(log)
-        stacked = StepLog(*(torch.stack(f, dim=1) for f in zip(*logs)))
-        return carry, stacked
+        stacked = {k: torch.stack([log[k] for log in logs], dim=1)
+                   for k in logs[0]}
+        if not cfg.terminal_synthesis:
+            # zeros and an all-True cert_fresh, as zero-stride views
+            py = params.q_block.shape[-1]
+            shapes = dict.fromkeys(REVISE2_FIELDS, ())
+            shapes.update(compensator=(m,), ellipse=(py, py))
+            for k, shape in shapes.items():
+                like = (torch.ones((), dtype=torch.bool, device=dev)
+                        if k == "cert_fresh" else
+                        torch.zeros((), dtype=dtype, device=dev))
+                stacked[k] = like.expand((batch, cfg.steps) + shape)
+        return carry, StepLog(**stacked)
 
     return closed_loop
 

@@ -1,11 +1,16 @@
 """Batched small-matrix linear algebra (counterpart of
-``koopmanx/ops/linalg.py:26-97``).
+``koopmanx/ops/linalg.py:26-141``).
 
 ``spd_inverse`` is the pivot-free Gauss-Jordan inverse of a symmetric
 positive-definite matrix that the engine applies to the ADMM KKT matrix
-every step. It runs as plain batched PyTorch ops on (B, n, n) tensors.
+every step; ``gj_inverse`` / ``gj_solve`` are Gauss-Jordan with partial
+pivoting for the general matrices of the doubling DARE
+(``control/dare.py``). Both run as plain batched PyTorch ops on (B, n, n)
+tensors.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import Tensor
@@ -55,3 +60,74 @@ def spd_inverse(k: Tensor, block: int = 1, eps: float = 0.0) -> Tensor:
             aug[..., j : j + r, :] = piv
     inv = aug[..., :, n:]
     return 0.5 * (inv + inv.transpose(-1, -2))
+
+
+@functools.lru_cache(maxsize=None)
+def _gj_tables(n: int, device: torch.device):
+    """Data-independent tables of :func:`gj_inverse`, built once per width
+    and device (read-only): for each column j the one-hot row mask
+    ``rows == j``, and an (n - j, n) table whose row q is the row order
+    that swaps rows j and j + q (row 0: no swap)."""
+    rows = torch.arange(n)
+    eq, swaps = [], []
+    for j in range(n):
+        eq.append((rows == j).to(device))
+        perms = rows.repeat(n - j, 1)
+        for q in range(1, n - j):
+            perms[q, j], perms[q, j + q] = j + q, j
+        swaps.append(perms.to(device))
+    return eq, swaps
+
+
+def gj_inverse(a: Tensor) -> Tensor:
+    """General-matrix inverse by Gauss-Jordan WITH partial pivoting,
+    (..., n, n) -> (..., n, n) (``koopmanx/ops/linalg.py:100-131``).
+
+    Column step j: among rows >= j the largest |entry| of column j is the
+    pivot (the first on ties; a NaN counts as the largest, in both
+    packages), rows j and p are swapped by one row gather, and one rank-1
+    update with ``factor[j] = d - 1`` both eliminates column j and
+    normalizes the pivot row. The JAX package's arithmetic, in its order;
+    the masks and swap orders come from :func:`_gj_tables`, so a step is
+    nine operations.
+    """
+    n = a.shape[-1]
+    eq, swaps = _gj_tables(n, a.device)
+    eye = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape)
+    aug = torch.cat([a, eye], dim=-1)  # (..., n, 2n)
+    for j in range(n):
+        q = aug[..., j:, j].abs().argmax(-1)  # pivot row p = j + q
+        order = swaps[j][q]  # (..., n)
+        aug = aug.gather(-2, order.unsqueeze(-1).expand(aug.shape))
+        d = aug[..., j, j : j + 1]
+        piv = aug[..., j, :] / d
+        factor = torch.where(eq[j], d - 1.0, aug[..., :, j])
+        aug = aug - factor.unsqueeze(-1) * piv.unsqueeze(-2)
+    return aug[..., :, n:]
+
+
+def gj_solve(a: Tensor, b: Tensor) -> Tensor:
+    """``a x = b`` as ``gj_inverse(a) @ b`` (``ops/linalg.py:134-141``)."""
+    return gj_inverse(a) @ b
+
+
+def cholesky(a: Tensor) -> Tensor:
+    """Lower Cholesky factor of (..., n, n) matrices, as
+    ``jnp.linalg.cholesky`` gives it: the input is first symmetrized,
+    (a + a') / 2, and a matrix that is not positive definite gets NaN in
+    its whole lower triangle and 0 above it, where
+    ``torch.linalg.cholesky`` would raise; every other matrix of the batch
+    keeps its factor. A matrix with a non-finite entry gets the same
+    all-NaN lower triangle: there the LAPACK builds differ (JAX's CPU
+    build runs through and leaves NaN where they propagate, torch's stops
+    at the first NaN pivot), and NaN wherever either puts one is the
+    superset of both."""
+    n = a.shape[-1]
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
+    finite = torch.isfinite(a).all(-1).all(-1)[..., None, None]
+    sym = (a + a.transpose(-1, -2)) / 2
+    l, info = torch.linalg.cholesky_ex(torch.where(finite, sym, eye))
+    bad = (info != 0)[..., None, None] | ~finite
+    lower = torch.ones(n, n, dtype=torch.bool, device=a.device).tril()
+    failed = torch.where(lower, float("nan"), 0.0).to(a.dtype)
+    return torch.where(bad, failed, l)

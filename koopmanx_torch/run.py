@@ -3,10 +3,10 @@
 weights and their fallback; rbf with random or k-means centers; random
 Fourier features), ``_mpc_params`` :132-203 (lifted tracking included),
 ``engine_config`` :206-251, ``_ref_fn`` :254-280 and ``build_pipeline``
-:282-412, with every estimator's initial state but the warm starts from
-the batch Grams: the windowed estimator's prefilled ring, compressed or
-not, and the Woodbury lane's carried statistics; the storage method's
-training Grams; the SM, Gram-carry and square-root RLS priors).
+:282-412, with every estimator's initial state: the windowed estimator's
+prefilled ring, compressed or not, and the Woodbury lane's carried
+statistics; the storage method's training Grams; the SM, Gram-carry and
+square-root RLS priors, or their warm starts from the training Grams).
 """
 from __future__ import annotations
 
@@ -19,7 +19,15 @@ from torch import Tensor
 from . import configs as C
 from .device import DeviceLike, resolve_device, torch_dtype
 from .edmd.batch import edmd_fit, gram_stats
-from .edmd.rls import gram_rls_init, rls_init, sqrt_rls_init, storage_init
+from .edmd.rls import (
+    gram_rls_init,
+    gram_rls_init_from_grams,
+    rls_init,
+    rls_init_from_grams,
+    sqrt_rls_init,
+    sqrt_rls_init_from_grams,
+    storage_init,
+)
 from .edmd.windowed import window_init, window_prefill
 from .engine import ref as refgen
 from .engine.core import check_supported
@@ -140,7 +148,12 @@ def mpc_params(cfg: C.RunConfig, system, nlift: int, device=None
     input weight and box; in du mode the box is du's and
     ``applied_min``/``applied_max`` bound the applied input;
     ``state_bounds`` becomes the stacked (N*py,) ``x_min``/``x_max``; the
-    state-space anchor ``ref_state`` under the constant reference."""
+    state-space anchor ``ref_state`` under the constant reference; under
+    terminal synthesis the lifted-state weight ``q_lift`` of the DARE, the
+    whole lifted state under lifted tracking (``Q_Lift = Q``,
+    VDP_Revise_2/Koopman_update_Tracking_Lift.m:197), else
+    diag(q, ..., q, 0, ...) on the n state channels of the lift
+    (``koopmanx/run.py:166-177``)."""
     mc = cfg.mpc
     kw = dict(dtype=torch_dtype(cfg.dtype), device=device)
     if mc.track_lifted:
@@ -161,6 +174,11 @@ def mpc_params(cfg: C.RunConfig, system, nlift: int, device=None
     if mc.state_bounds is not None:
         x_box = tuple(torch.full((mc.horizon * py,), v, **kw)
                       for v in mc.state_bounds)
+    q_lift = None
+    if mc.terminal_synthesis:
+        diag = torch.zeros((nlift,), **kw)
+        diag[: nlift if mc.track_lifted else system.n] = mc.q_weight
+        q_lift = torch.diag(diag)
     return MPCParams(
         q_block=mc.q_weight * torch.eye(py, **kw),
         r_block=mc.r_weight * torch.eye(system.m, **kw),
@@ -169,6 +187,7 @@ def mpc_params(cfg: C.RunConfig, system, nlift: int, device=None
         cy=cy,
         applied_min=full(applied[0]),
         applied_max=full(applied[1]),
+        q_lift=q_lift,
         x_min=x_box[0],
         x_max=x_box[1],
         ref_state=(_reference_state(cfg, system.n, kw["dtype"], device)
@@ -179,10 +198,6 @@ def mpc_params(cfg: C.RunConfig, system, nlift: int, device=None
 def engine_config(cfg: C.RunConfig) -> EngineConfig:
     """Translate a RunConfig into the static EngineConfig."""
     uc, mc = cfg.update, cfg.mpc
-    if uc.warm_start_from_batch:
-        raise NotImplementedError(
-            "warm_start_from_batch is not ported yet (ROADMAP queue A, L4)"
-        )
     ecfg = EngineConfig(
         controller=mc.controller,
         horizon=mc.horizon,
@@ -217,6 +232,7 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
         qp_kkt_refine=mc.qp_kkt_refine,
         qp_backend=mc.qp_backend,
         terminal_synthesis=mc.terminal_synthesis,
+        terminal_mode=mc.terminal_mode,
         state_bounds=mc.state_bounds is not None,
     )
     check_supported(ecfg)
@@ -278,9 +294,11 @@ def initial_estimator(cfg: C.RunConfig, dictionary: Dictionary,
     ``update.mode='windowed'`` a ring (in ``window_store``) prefilled with
     the last W lifted training snapshots, with the Woodbury lane's
     statistics built from it; for ``'storage'`` the Grams of the lifted
-    training snapshots; else the scaled-identity prior of the square-root
-    (``'rls_sqrt'``), Gram-carry (``'rls_chol'``) or SM RLS (the rest,
-    ``'off'`` included, as in the JAX package)."""
+    training snapshots; else the square-root (``'rls_sqrt'``), Gram-carry
+    (``'rls_chol'``) or SM RLS (the rest, ``'off'`` included, as in the
+    JAX package), warm-started from those Grams under
+    ``warm_start_from_batch`` (``Revise_2/Koopman_update.m:264-265``), else
+    from its scaled-identity prior."""
     system = get_system(cfg.system)
     uc = cfg.update
     dtype = torch_dtype(cfg.dtype)
@@ -291,9 +309,13 @@ def initial_estimator(cfg: C.RunConfig, dictionary: Dictionary,
                             store_dtype=store_dtype(cfg))
         return window_prefill(state, dictionary(data.x), data.u,
                               dictionary(data.y), data.x)
-    if uc.mode == "storage":
-        return storage_init(gram_stats(dictionary(data.x), dictionary(data.y),
-                                       data.u, data.x))
+    if uc.mode == "storage" or uc.warm_start_from_batch:
+        stats = gram_stats(dictionary(data.x), dictionary(data.y), data.u,
+                           data.x)
+        init = {"storage": storage_init, "rls_sqrt": sqrt_rls_init_from_grams,
+                "rls_chol": gram_rls_init_from_grams}.get(
+            uc.mode, rls_init_from_grams)
+        return init(stats)
     init = {"rls_sqrt": sqrt_rls_init, "rls_chol": gram_rls_init}.get(
         uc.mode, rls_init)
     return init(dictionary.nlift, system.m, system.n, uc.c_ab, uc.c_c, dtype)

@@ -64,19 +64,32 @@ def rk4_step(f: VectorField, h: float) -> StepMap:
     return step
 
 
+def rk4_step_k1k4(f: VectorField, h: float) -> StepMap:
+    """The MATLAB reference's RK4 variant, its k4 stage (sic) evaluated at
+    ``x + h*k1`` (``systems/base.py:95-109``;
+    ``Revise_2/Koopman_update.m:21-25``)."""
+
+    def step(x: Tensor, u: Tensor, theta: Any) -> Tensor:
+        t = 0.0
+        k1 = f(t, x, u, theta)
+        k2 = f(t + h / 2.0, x + 0.5 * h * k1, u, theta)
+        k3 = f(t + h / 2.0, x + 0.5 * h * k2, u, theta)
+        k4 = f(t + h, x + h * k1, u, theta)
+        return x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+
+    return step
+
+
 def make_step(system: System, h: float, integrator: str = "rk4") -> StepMap:
     """The one-step plant map ``x+ = F(x, u, theta)``, clamped where the
-    system says (``systems/base.py:112-129``). A discrete plant ignores
-    ``h`` and ``integrator``."""
+    system says (``systems/base.py:112-129``): ``integrator`` 'rk4' or
+    'rk4_matlab'. A discrete plant ignores ``h`` and ``integrator``."""
     if system.discrete:
         base = system.step_map
     elif integrator == "rk4":
         base = rk4_step(system.f, h)
     elif integrator == "rk4_matlab":
-        raise NotImplementedError(
-            "integrator 'rk4_matlab' is not ported yet (ROADMAP queue A, "
-            "L1: rk4_step_k1k4)"
-        )
+        base = rk4_step_k1k4(system.f, h)
     else:
         raise ValueError(f"unknown integrator {integrator!r}")
     if system.clamp is None:

@@ -2,9 +2,10 @@
 
 The port has the Duffing oscillator, the Van der Pol oscillator, the
 cascaded tanks (two and three stages, and the two-pump tank_mimo: exact
-discrete maps clamped at x >= 0) and the damped pendulum;
-the other plants of the JAX registry raise ``NotImplementedError`` naming
-the ROADMAP item.
+discrete maps clamped at x >= 0), the damped pendulum and the one-state
+toy plant of the Revise_2 experiments; the other plant of the JAX
+registry (approach3) raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -199,12 +200,37 @@ PENDULUM = System(
     theta1=PendulumParams(a=4.0, b=1.0 / 3.0, k=2.0 / 3.0),
 )
 
+class Toy1dParams(NamedTuple):
+    """x' = a2 x^2 + a3 x^3 + a1 x + u
+    (One_Dimensional_Toy_Example_Continuous_System.m:4)."""
+
+    a1: Tensor
+    a2: Tensor
+    a3: Tensor
+
+
+def _toy1d_f(t, x: Tensor, u: Tensor, th: Toy1dParams) -> Tensor:
+    del t
+    x1 = x[..., 0]
+    return (th.a2 * (x1 * x1) + th.a3 * (x1 * x1 * x1) + th.a1 * x1
+            + u[..., 0]).unsqueeze(-1)
+
+
+# the one-state toy plant; the reference has no switch (theta1 = theta0)
+TOY1D = System(
+    name="toy1d",
+    n=1,
+    m=1,
+    f=_toy1d_f,
+    theta0=Toy1dParams(a1=0.4, a2=0.2, a3=-0.3),
+    theta1=Toy1dParams(a1=0.4, a2=0.2, a3=-0.3),
+)
+
 REGISTRY = {s.name: s for s in (DUFFING, VANDERPOL, TANK, TANK3, TANK_MIMO,
-                                PENDULUM)}
+                                PENDULUM, TOY1D)}
 
 # plants of the JAX registry that later slices port (ROADMAP queue A)
 _NOT_PORTED = {
-    "toy1d": "item 14 (terminal synthesis, Revise_2 presets)",
     "approach3": "item 18 (training)",
 }
 

@@ -385,13 +385,16 @@ def test_convert_refuses_an_unknown_estimator_state(flagship_arrays):
 
 @pytest.mark.parametrize("change,match", [
     (lambda c: setattr(c.mpc, "controller", "lqr"), "item 15"),
-    (lambda c: setattr(c.mpc, "terminal_synthesis", True), "item 14"),
-    (lambda c: setattr(c.update, "warm_start_from_batch", True), "L4"),
-], ids=["lqr", "terminal_synthesis", "warm_start_from_batch"])
+    (lambda c: (setattr(c.mpc, "terminal_synthesis", True),
+                setattr(c.mpc, "terminal_mode", "lmi")), "item 14b"),
+    (lambda c: setattr(c.mpc, "qp_kkt_refine", 2), "L3"),
+], ids=["lqr", "terminal_synthesis", "qp_kkt_refine"])
 def test_later_items_stay_refused(change, match):
-    """The LQR controller, terminal synthesis and the warm starts from the
-    batch Grams are not ported yet: ``engine_config`` raises naming their
-    ROADMAP item, on the VDP preset as on any other."""
+    """The LQR controller, terminal synthesis in its LMI mode and the
+    carried KKT inverse are not ported yet: ``engine_config`` raises
+    naming their ROADMAP item, on the VDP preset as on any other. (The
+    DARE synthesis and the warm starts from the batch Grams are ported:
+    tests/test_torch_revise2.py, tests/test_torch_dare.py.)"""
     cfg = TC.vdp_lifted_preset()
     change(cfg)
     with pytest.raises(NotImplementedError, match=match):

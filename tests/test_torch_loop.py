@@ -223,21 +223,24 @@ def test_build_pipeline_runs_the_flagship_loop_small_on_cpu():
 
 
 def test_unported_options_raise():
-    """The options of later slices raise, naming their ROADMAP item:
-    terminal synthesis (item 14), the LQR controller (item 15), the
-    polynomial and identity lifts (L7). The Woodbury lane, a compressed
-    ring, k-means centers and Fourier lifts (item 11) are ported
+    """The options of later slices raise, naming their ROADMAP item: the
+    LMI terminal (item 14b), the LQR controller (item 15), the polynomial
+    and identity lifts (L7). The Woodbury lane, a compressed ring, k-means
+    centers and Fourier lifts (item 11) are ported
     (tests/test_torch_rbf128.py), and so are the explicit applied-window
     rows and the state box (item 12, tests/test_torch_general_qp.py), the
     storage-method update and lifted tracking (item 13,
-    tests/test_torch_estimators.py, tests/test_torch_vdp.py)."""
-    cases = [("mpc", "terminal_synthesis", True, "item 14"),
-             ("lift", "kind", "hermite", "L7"),
-             ("lift", "kind", "identity", "L7"),
-             ("mpc", "controller", "lqr", "item 15")]
-    for part, field, value, item in cases:
+    tests/test_torch_estimators.py, tests/test_torch_vdp.py), and the DARE
+    terminal synthesis (item 14a, tests/test_torch_revise2.py)."""
+    cases = [({"terminal_synthesis": True, "terminal_mode": "lmi"}, {},
+              "item 14b"),
+             ({}, {"kind": "hermite"}, "L7"),
+             ({}, {"kind": "identity"}, "L7"),
+             ({"controller": "lqr"}, {}, "item 15")]
+    for mpc, lift, item in cases:
         cfg = TC.tank_bench_config(steps=2)
         cfg.data = dataclasses.replace(cfg.data, n_step=5, n_traj=5)
-        setattr(getattr(cfg, part), field, value)
+        cfg.mpc = dataclasses.replace(cfg.mpc, **mpc)
+        cfg.lift = dataclasses.replace(cfg.lift, **lift)
         with pytest.raises(NotImplementedError, match=item):
             t_build_pipeline(cfg, device="cpu")

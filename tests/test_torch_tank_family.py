@@ -89,8 +89,13 @@ def test_plant_step_matches_jax(name):
 
 
 def test_unported_integrator_raises():
-    with pytest.raises(NotImplementedError, match="L1"):
-        tsys.make_step(tlib.DUFFING, 0.05, "rk4_matlab")
+    """Both integrators of the JAX package build (the MATLAB RK4 since the
+    Revise_2 slice, ``tests/test_torch_dare.py``); a name neither package
+    has raises."""
+    for name in ("rk4", "rk4_matlab"):
+        assert callable(tsys.make_step(tlib.DUFFING, 0.05, name))
+    with pytest.raises(ValueError, match="unknown integrator"):
+        tsys.make_step(tlib.DUFFING, 0.05, "euler")
 
 
 def _points(centers, rng):

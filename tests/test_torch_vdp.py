@@ -55,7 +55,8 @@ NOMINAL = [2.0, 2.0, -10.0, -0.8]
 SWITCHED = [1.0, -3.0, -10.0, -3.0]
 ENCODER = os.path.join(REPO_ROOT, "artifacts", "vanderpol_kmae_encoder.mat")
 PARAM_KEYS = ("q_block", "r_block", "u_min", "u_max", "cy", "applied_min",
-              "applied_max", "x_min", "x_max", "ref_state")
+              "applied_max", "terminal", "q_lift", "x_min", "x_max",
+              "ref_state")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -271,8 +272,8 @@ def _configure(cfg, reference="constant"):
 
 def arrays_from_jax(pipe):
     """The JAX pipeline as ``convert.pipeline_from_numpy`` reads it: an MLP
-    or RBF lift with its wrappers and normalizer, the estimator state by
-    its fields, the MPC arrays."""
+    or RBF lift with its wrappers (state augmentation, zero offset) and
+    normalizer, the estimator state by its fields, the MPC arrays."""
     n = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
     lc = pipe.config.lift
     params = n(pipe.dictionary.params)
@@ -283,6 +284,7 @@ def arrays_from_jax(pipe):
     return {
         **base,
         "state_augmented": lc.state_augmented,
+        "zero_offset": lc.zero_offset,
         "normalizer": norm,
         "model0": tuple(n(pipe.model0)),
         "rls0": n(pipe.rls0._asdict()),
@@ -295,38 +297,45 @@ def arrays_from_jax(pipe):
 VDP = (jlib.VdpParams, tlib.VdpParams, NOMINAL, SWITCHED)
 
 
-def scenarios(nominal, switched, batch=BATCH, seed=0):
-    """x0 ~ U[-2, 2]^2 and per-scenario plant parameters within 15 % of
+def scenarios(nominal, switched, batch=BATCH, seed=0, n=2):
+    """x0 ~ U[-2, 2]^n and per-scenario plant parameters within 15 % of
     the nominal and switched values."""
     rng = np.random.default_rng(seed)
-    x0 = rng.uniform(-2.0, 2.0, size=(batch, 2))
+    x0 = rng.uniform(-2.0, 2.0, size=(batch, n))
     th0 = np.array(nominal) * (1 + rng.uniform(-.15, .15, (batch, len(nominal))))
     th1 = np.array(switched) * (1 + rng.uniform(-.15, .15,
                                                 (batch, len(switched))))
     return x0, th0, th1
 
 
-def run_both(jcfg, tcfg, plant=VDP):
+def run_both(jcfg, tcfg, plant=VDP, n=2, nudge_model=False):
     """The JAX pipeline of ``jcfg``, carried across into the port under
     ``tcfg``, both run over the same scenarios of ``plant`` (its parameter
-    classes in both packages, nominal and switched values), and JAX twice
+    classes in both packages, nominal and switched values; an n-state
+    plant), and JAX twice
     more with every x0 moved up, then down, by one ulp: the reference's
     own round-off floor on these scenarios. Returns the three JAX logs, the
     port's log, carry and pipeline. The port's run launches no kernel: its tensors
-    are on the CPU."""
+    are on the CPU. ``nudge_model`` adds a fourth JAX log from the initial
+    model's A moved up by one ulp (the floor of what the first steps
+    compute from the model alone, such as its DARE)."""
     jpipe = j_build_pipeline(jcfg)
     pipe = pipeline_from_numpy(arrays_from_jax(jpipe), tcfg, device="cpu",
                                dtype=F64)
     jp, tp, nominal, switched = plant
-    x0, th0, th1 = scenarios(nominal, switched)
+    x0, th0, th1 = scenarios(nominal, switched, n=n)
     rep = lambda v: jnp.broadcast_to(v, (BATCH,) + v.shape)
-    jrun = jax.jit(lambda x: j_run_batch(
+    jrun = jax.jit(lambda x, model: j_run_batch(
         jpipe.closed_loop, jax.tree_util.tree_map(rep, jpipe.params), x,
-        jax.tree_util.tree_map(rep, jpipe.model0),
+        jax.tree_util.tree_map(rep, model),
         jax.tree_util.tree_map(rep, jpipe.rls0),
         jp(*jnp.asarray(th0.T)), jp(*jnp.asarray(th1.T)))[1])
-    jlogs = tuple(jrun(jnp.asarray(x)) for x in (
+    jlogs = tuple(jrun(jnp.asarray(x), jpipe.model0) for x in (
         x0, np.nextafter(x0, 9.0), np.nextafter(x0, -9.0)))
+    if nudge_model:
+        a_up = np.nextafter(np.asarray(jpipe.model0.A), 9.0)
+        jlogs += (jrun(jnp.asarray(x0),
+                       jpipe.model0._replace(A=jnp.asarray(a_up))),)
     launches = box_admm.launches
     carry, log = t_run_batch(
         pipe.closed_loop, replicate(pipe.params, BATCH), torch.tensor(x0),

@@ -29,7 +29,13 @@ square-root RLS; ``--config vdp_rbf`` the storage-method loop
 (``configs.vdp_rbf_bench_config``: two batched pseudo-inverses a step,
 ``pinv``, inside ``storage_model``); ``--config rls_chol`` the flagship
 with the Gram-carry RLS and its reset (``gram_rls_model``: two
-``spd_inverse`` with a ridge a step). For each regime it prints the top
+``spd_inverse`` with a ridge a step); ``--config revise2_duffing`` and
+``--config revise2_vdp`` the Revise_2 loops
+(``configs.revise2_duffing_bench_config``, ``revise2_vdp_bench_config``:
+the per-step DARE terminal synthesis), whose stages are
+``synthesize_terminal`` and the pivoted ``gj_inverse`` inside it, the
+monitor block (``revise2_monitors``) and the QP build with the batched
+Qbar (``weight_bar``, ``condensed_qp``). For each regime it prints the top
 device kernels
 by time, then one JSON line: wall ms per step, device-busy ms per step (the
 union of the kernels' intervals), the device's idle share, kernel launches
@@ -45,7 +51,8 @@ in ``chip_smoke.py``'s phase 7. ``--out`` also writes the whole kernel
 tables to a file.
 
     python3 tools/profile_torch_step.py
-        [--config flagship|tank|rbf128|tank_mimo|vdp|vdp_rbf|rls_chol]
+        [--config flagship|tank|rbf128|tank_mimo|vdp|vdp_rbf|rls_chol|
+                  revise2_duffing|revise2_vdp]
         [--steps 10]
         [--batch 8192] [--out FILE]
 """
@@ -71,7 +78,8 @@ def main() -> int:
     ap.add_argument("--backend", default="pallas")
     ap.add_argument("--config", default="flagship",
                     choices=("flagship", "tank", "rbf128", "tank_mimo",
-                             "vdp", "vdp_rbf", "rls_chol"))
+                             "vdp", "vdp_rbf", "rls_chol", "revise2_duffing",
+                             "revise2_vdp"))
     ap.add_argument("--out", default=None, help="write the kernel table here")
     args = ap.parse_args()
 
@@ -83,6 +91,8 @@ def main() -> int:
     from koopmanx_torch.configs import (
         flagship_config,
         rbf128_bench_config,
+        revise2_duffing_bench_config,
+        revise2_vdp_bench_config,
         tank_bench_config,
         tank_mimo_bench_config,
         tank_preset,
@@ -91,7 +101,9 @@ def main() -> int:
     )
     from koopmanx_torch.control import qp
     from koopmanx_torch.engine import core
+    from koopmanx_torch.engine import loop as engine_loop
     from koopmanx_torch.edmd import rls, windowed
+    from koopmanx_torch.ops import linalg
     from koopmanx_torch.engine.scenario import sample_scenarios
     from koopmanx_torch.run import build_pipeline, run_scenarios
     from koopmanx_torch.systems.library import get_system
@@ -112,7 +124,11 @@ def main() -> int:
                          (core, "condensed_qp"), (core, "storage_update"),
                          (core, "storage_model"), (rls, "pinv"),
                          (core, "gram_rls_update"),
-                         (core, "gram_rls_model")):
+                         (core, "gram_rls_model"),
+                         (core, "synthesize_terminal"),
+                         (linalg, "gj_inverse"),
+                         (engine_loop, "revise2_monitors"),
+                         (core, "weight_bar")):
         stages[name] = 0.0
 
         def ranged(*a, _fn=getattr(module, name), _name=name, **kw):
@@ -132,6 +148,12 @@ def main() -> int:
             x0_range = (0.0, 2.0)
         elif args.config == "rbf128":
             cfg = rbf128_bench_config(steps=steps, qp_backend=backend)
+            x0_range = (-2.0, 2.0)
+        elif args.config in ("revise2_duffing", "revise2_vdp"):
+            make = (revise2_duffing_bench_config
+                    if args.config == "revise2_duffing"
+                    else revise2_vdp_bench_config)
+            cfg = make(steps=steps, qp_backend=backend)
             x0_range = (-2.0, 2.0)
         elif args.config in ("vdp", "vdp_rbf"):
             make = (vdp_bench_config if args.config == "vdp"
