@@ -176,12 +176,38 @@ Phases, each of which fails the run on error:
    finite on both routes within 1 % / 5 %.
    Prints the share of scenario-steps whose certificate passed the
    guard, each route's warm ms/step in turns and each run's peak device
-   memory.
+   memory;
+16. drive the serving API and the CLI, counts zeroed before each run and
+   read after: ``BatchedController`` at 8192 plants of the flagship
+   config (phase 3's pipelines and scenarios) for 200 calls against the
+   plant stepped outside it (``systems.base.make_step``, phase 3's
+   per-scenario parameters and switch schedule), kernel route then plain
+   route: 200 ``box_admm`` launches, then 0; x finite, |u| <= 2, the
+   float32 x1 MSE and steady-state error within 1 % of phase 3's fused
+   loop and within 1 % / 5 % between the routes. In float64 over 16
+   steps the fleet equals ``run_batch`` on the same scenarios and route
+   (within 1e-12 in x and u). A float64 fleet of the flagship with a sine
+   reference and a dither probe (each plant's clock enters its QP) runs
+   100 calls; then half the fleet resets (the even plants) and a quarter
+   resets in full (plants 1 mod 4), so the clocks differ (the per-plant
+   path); over the next 10 calls 4 sampled plants must match single
+   Controllers given each plant's state at call 100, its measurements
+   and its reset (within 1e-9: a one-row GEMM rounds otherwise than an
+   8192-row one), and, within 1e-12, fleets of copies of each with every
+   clock equal (the int path at the same width). Then each call's latency (p50, p99, the
+   caller's copy of u to the host included), host synchronizations and
+   device operations, for the fleet and for one plant (``Controller``)
+   on both routes, beside phase 5's ms/step. Last ``cli.main`` in this
+   process: ``run --preset duffing --steps 300`` and ``run --preset tank
+   --steps 400`` on the card (the kernel route: one launch a step;
+   steady-state error below 0.1 and 0.2, |u| within 2 and 8, a finite
+   final state) and ``sweep --preset duffing --batch 8192 --steps 200``
+   (200 launches, every scenario finite).
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
-line, the card line
+line, a serving JSON line (phase 16's latencies), the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -189,6 +215,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -283,6 +310,35 @@ EARLY_BATCH, EARLY_TOL = 256, 1e-8
 # reassociation 3.7 times past ten times its one-ulp-of-x0 floor (B = 256,
 # 16 f64 steps, H100), so that floor alone cannot bound any kernel
 REVISE2_STEPS = {"revise2_duffing": 200, "revise2_vdp": 40, "toy1d": 60}
+# phase 16: the serving API. The fleet runs phase 3's 200 steps as 200
+# calls against the plant stepped outside it; in float64 it must equal the
+# fused loop, which runs the same eager operations in the same order. The
+# masked reset runs a float64 fleet of the flagship with a sine reference
+# and a dither probe (so that each plant's clock enters its QP): at call
+# RESET_AT half the fleet resets (the even plants) and a quarter of it
+# resets in full (plants 1 mod 4); SAMPLED plants (soft, full, soft,
+# untouched) are held for RESET_CHECK calls against single Controllers
+# given each plant's state at RESET_AT, its measurements and its reset
+# (to SINGLE_TOL), and against fleets of BATCH copies of each with every
+# clock at its own, the int path at the same width (to SERVE_TOL). The
+# single Controller's one-row GEMMs (the MLP lift's F.linear) round
+# otherwise than the fleet's 8192-row ones (H100: 2.88e-12 in u over the
+# 10 calls, while the same-width twin agrees bit for bit), so a single
+# plant is held to the JAX package's own fleet-against-single tolerance
+# (tests/test_controller_equiv.py:191), the twin to 1e-12.
+# Latency: p50 and p99 of a call, the caller's copy of u to the host
+# included, after LATENCY_WARMUP calls
+SERVE_CALLS, SERVE_TOL, SINGLE_TOL = STEPS, 1e-12, 1e-9
+RESET_AT, RESET_CHECK, SAMPLED = 100, 10, (0, 1, 2, 3)
+LATENCY_CALLS, LATENCY_WARMUP = {"fleet": 60, "single": 100}, 5
+# the CLI runs of the verify skill: (preset, steps, steady-state error
+# bound, |u| bound). Duffing's bound is the port's own healthy range (its
+# pipeline draws its training data with torch's generator, not JAX's PRNG:
+# 0.0835 at 300 float32 steps on the CPU, still converging; on the JAX
+# package's own pipeline the port gives 0.0106 against JAX's 0.0124), the
+# tank's the JAX package's
+CLI_RUNS = (("duffing", 300, 0.1, 2.0), ("tank", 400, 0.2, 8.0))
+SWEEP_BATCH, SWEEP_STEPS = BATCH, STEPS
 
 
 def fail(msg: str) -> None:
@@ -1038,7 +1094,7 @@ def run_loop(backend: str, device, steps: int = STEPS, dtype: str = "float32",
     def run():
         return run_scenarios(pipe, sc)
 
-    run.pipe = pipe
+    run.pipe, run.batch = pipe, sc
     return run
 
 
@@ -1905,6 +1961,308 @@ def replay_resets(residual, mult: float, beta: float = 0.98):
     return total
 
 
+def external_plant(pipe, batch):
+    """The pipeline's plant stepped outside the controller, with the
+    scenarios' parameters and the loop's switch schedule:
+    ``plant(x, u, k)``."""
+    from koopmanx_torch.systems.base import make_step, make_switch_schedule
+    from koopmanx_torch.systems.library import get_system
+
+    cfg = pipe.engine_cfg
+    step = make_step(get_system(pipe.config.system), cfg.h, cfg.integrator)
+    sched = make_switch_schedule(batch.theta0, batch.theta1, cfg.switch_step)
+    return lambda x, u, k: step(x, u, sched(k))
+
+
+def one_scenario(batch, i: int):
+    """Scenario ``i`` of a ScenarioBatch, as a batch of one."""
+    take = lambda th: type(th)(*(v[i:i + 1] for v in th))
+    return batch._replace(x0=batch.x0[i:i + 1], theta0=take(batch.theta0),
+                          theta1=take(batch.theta1))
+
+
+def serve(ctrl, plant, x0, calls: int):
+    """``calls`` calls of ``ctrl`` against ``plant`` from ``x0``; returns
+    the measurements and inputs stacked (B, T, ...) and the last state."""
+    import torch
+
+    x, xs, us = x0, [], []
+    for k in range(calls):
+        xs.append(x)
+        u = ctrl.step(x)
+        us.append(u)
+        x = plant(x, u, k)
+    return torch.stack(xs, 1), torch.stack(us, 1), x
+
+
+def is_sync_warning(w) -> bool:
+    """A warning of ``set_sync_debug_mode('warn')`` for a synchronizing
+    operation; not its one-time notice that the mode is a prototype (the
+    first ``'warn'`` of a process), which names synchronization too."""
+    msg = str(w.message)
+    return "synchroniz" in msg and "prototype" not in msg
+
+
+def syncs_per_call(fn, calls: int = 3):
+    """Host synchronizations a call of ``fn``, counted by
+    ``torch.cuda.set_sync_debug_mode('warn')``, and the source lines that
+    raised them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lines = [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+             for w in caught if is_sync_warning(w)]
+    return len(lines) / calls, sorted(set(lines))
+
+
+def device_ops_per_call(fn, calls: int = 3) -> float:
+    """Device operations (kernels, copies, fills) a call of ``fn``, from
+    the profiler's device-side events."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("aten::")) / calls
+
+
+def serve_latency(ctrl, plant, x0, calls: int, single: bool = False):
+    """Wall ms of a call of ``ctrl.step`` with the caller's copy of u to
+    the host, the device idle at each call's start, over ``calls`` calls
+    against ``plant`` (after LATENCY_WARMUP); then host synchronizations
+    and device operations a call of ``step`` alone. ``single``: ``ctrl``
+    is a Controller (unbatched x and u)."""
+    import torch
+
+    lift = (lambda t: t[None]) if single else (lambda t: t)
+    x, k, walls = x0[0] if single else x0, 0, []
+    for _ in range(LATENCY_WARMUP + calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = ctrl.step(x)
+        u.cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        x = plant(lift(x), lift(u), k)
+        x, k = (x[0] if single else x), k + 1
+    walls = torch.tensor(walls[LATENCY_WARMUP:], dtype=torch.float64)
+    step = lambda: ctrl.step(x)
+    syncs, sources = syncs_per_call(step)
+    return {"calls": calls, "p50_ms": float(walls.quantile(0.5)),
+            "p99_ms": float(walls.quantile(0.99)),
+            "mean_ms": float(walls.mean()),
+            "host_syncs_per_call_in_step": syncs, "host_sync_sources": sources,
+            "device_ops_per_call": device_ops_per_call(step)}
+
+
+def check_served(xs, us, name: str, calls: int):
+    import torch
+
+    if tuple(xs.shape) != (BATCH, calls, 2):
+        fail(f"{name}: served x shape {tuple(xs.shape)}")
+    for label, t in (("x", xs), ("u", us)):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"{name}: non-finite {label}")
+    u_max = float(us.abs().max())
+    if u_max > 2.0:
+        fail(f"{name}: |u| = {u_max} > 2")
+
+
+def served_quality(xs, tail: int = 50):
+    """Batch-mean tracking MSE and steady-state error of x1 against the
+    flagship's constant r = 1."""
+    err = xs[..., 0] - 1.0
+    return float((err ** 2).mean()), float(err[:, -tail:].abs().mean())
+
+
+def cli_json(argv):
+    """``koopmanx_torch.cli.main(argv)`` in this process, its standard
+    output captured: (the printed JSON, the launch counts of the run)."""
+    import contextlib
+    import io
+
+    from koopmanx_torch import cli
+
+    out = io.StringIO()
+    zero_counts()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return json.loads(out.getvalue()), read_counts()
+
+
+def phase_serving(device, card: str, loops, fused_quality, fused_ms):
+    """Phase 16: ``BatchedController`` and ``Controller`` on the card and
+    the CLI in process. ``loops`` are phase 3-4's flagship thunks by route
+    (their pipelines and scenarios), ``fused_quality`` phase 3's (MSE,
+    steady-state error), ``fused_ms`` phase 5's ms/step by route. Returns
+    the launch counts by path and the serving report."""
+    import numpy as np
+    import torch
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.engine.controller import BatchedController, Controller
+    from koopmanx_torch.tree import tree_map
+
+    report, counts = {"batch": BATCH, "calls": SERVE_CALLS}, {}
+    # 1. the fleet at full width on both routes, against the plant outside
+    served = {}
+    for backend, run in loops.items():
+        pipe, sc = run.pipe, run.batch
+        bc = BatchedController.from_pipeline(pipe, BATCH)
+        zero_counts()
+        (xs, us, _), wall = timed(lambda: serve(
+            bc, external_plant(pipe, sc), sc.x0, SERVE_CALLS))
+        got = read_counts()
+        want = SERVE_CALLS if backend == "pallas" else 0
+        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+            fail(f"phase 16 fleet ({backend}) launched {got}, not {want} "
+                 "box_admm launches")
+        check_served(xs, us, f"phase 16 fleet ({backend})", SERVE_CALLS)
+        served[backend] = served_quality(xs)
+        counts[f"serving fleet, {backend} (phase 16)"] = got["box_admm"]
+        report[f"fleet_{backend}"] = {
+            "launches": got, "wall_s_first_run": wall,
+            "mse": served[backend][0], "sse": served[backend][1]}
+    for what, i in (("tracking MSE", 0), ("steady-state error", 1)):
+        k, p, f = (served["pallas"][i], served["xla"][i], fused_quality[i])
+        if not abs(k - f) <= 1e-2 * max(abs(f), 1e-9):
+            fail(f"phase 16: served {what} {k} vs the fused loop's {f}")
+        if not abs(k - p) <= QUALITY_RTOL[what] * max(abs(p), 1e-9):
+            fail(f"phase 16: served {what}, kernel {k} vs plain {p}")
+    report["fused_loop_quality"] = list(fused_quality)
+
+    # 2. serving against the fused loop in float64, same scenarios, route
+    gaps = {}
+    for backend in loops:
+        run = run_loop(backend, device, LOOP_EARLY_STEPS, "float64")
+        _, log = run()
+        bc = BatchedController.from_pipeline(run.pipe, BATCH)
+        xs, us, _ = serve(bc, external_plant(run.pipe, run.batch),
+                          run.batch.x0, LOOP_EARLY_STEPS)
+        gaps[backend] = {"dx": float((xs - log.x).abs().max()),
+                         "du": float((us - log.u).abs().max())}
+    report["serving_vs_fused_loop_f64"] = {
+        "steps": LOOP_EARLY_STEPS, "tol": SERVE_TOL, **gaps}
+    if any(g > SERVE_TOL for gap in gaps.values() for g in gap.values()):
+        fail(f"phase 16: served float64 loop differs from run_batch: {gaps}")
+
+    # 3. the masked reset, per-plant clocks, float64
+    cfg = flagship_config(steps=RESET_AT + RESET_CHECK, horizon=HORIZON)
+    cfg.reference, cfg.update.dither = "sine", 0.02
+    run = config_loop(cfg, device, "float64", batch=BATCH)
+    pipe, sc = run.pipe, run.batch
+    plant = external_plant(pipe, sc)
+    bc = BatchedController.from_pipeline(pipe, BATCH)
+    _, _, x = serve(bc, plant, sc.x0, RESET_AT)
+    singles = {}
+    for i in SAMPLED:
+        single = Controller.from_pipeline(pipe)
+        single.state = tree_map(lambda a: a[i:i + 1].clone(), bc.state)
+        single._k = bc.clocks[i:i + 1]
+        singles[i] = single
+    idx = torch.arange(BATCH)
+    soft, full = idx % 2 == 0, idx % 4 == 1
+    bc.reset(mask=soft)
+    bc.reset(full=True, mask=full)
+    for i, single in singles.items():
+        if bool(soft[i]):
+            single.reset()
+        elif bool(full[i]):
+            single.reset(full=True)
+    clocks = bc.clocks
+    if len(set(clocks.tolist())) != 2:
+        fail(f"phase 16: clocks after the reset {sorted(set(clocks))}")
+    # each sampled plant's twin: a fleet of BATCH copies of its state with
+    # every clock at its own, which takes the int path at the same width
+    twins = {}
+    for i in SAMPLED:
+        twin = BatchedController.from_pipeline(pipe, BATCH)
+        twin.state = tree_map(lambda a: a[i:i + 1].expand_as(a).clone(),
+                              bc.state)
+        twin._k = np.full(BATCH, clocks[i])
+        twins[i] = twin
+    worst = dict.fromkeys(("single", "twin"), 0.0)
+    for k in range(RESET_AT, RESET_AT + RESET_CHECK):
+        u = bc.step(x)
+        for i in SAMPLED:
+            for name, got in (
+                    ("single", singles[i].step(x[i])),
+                    ("twin", twins[i].step(x[i:i + 1].expand(BATCH, -1))[0])):
+                worst[name] = max(worst[name],
+                                  float((got - u[i]).abs().max()))
+        x = plant(x, u, k)
+    report["masked_reset_f64"] = {
+        "reset_at": RESET_AT, "calls": RESET_CHECK, "sampled": list(SAMPLED),
+        "soft": int(soft.sum()), "full": int(full.sum()),
+        "max_abs_du_vs_single": worst["single"],
+        "max_abs_du_vs_int_path_twin": worst["twin"],
+        "tol_single": SINGLE_TOL, "tol_twin": SERVE_TOL,
+        # the fleet's clocks still differ: the per-plant path
+        "host_syncs_per_call_in_step_per_plant_path": syncs_per_call(
+            lambda: bc.step(x), calls=6)}
+    if not (worst["single"] <= SINGLE_TOL and worst["twin"] <= SERVE_TOL):
+        fail(f"phase 16: reset plants differ from single Controllers and "
+             f"their int-path twins by {worst} (tol {SINGLE_TOL}, "
+             f"{SERVE_TOL})")
+
+    # 4. latency of a call, both routes, fleet and one plant
+    for backend, run in loops.items():
+        pipe, sc = run.pipe, run.batch
+        bc = BatchedController.from_pipeline(pipe, BATCH)
+        report[f"latency_fleet_{backend}"] = serve_latency(
+            bc, external_plant(pipe, sc), sc.x0, LATENCY_CALLS["fleet"])
+        one = one_scenario(sc, 0)
+        report[f"latency_single_{backend}"] = serve_latency(
+            Controller.from_pipeline(pipe), external_plant(pipe, one),
+            one.x0, LATENCY_CALLS["single"], single=True)
+    report["fused_loop_ms_per_step"] = fused_ms
+
+    # 5. the CLI in process, on the card
+    cli_report = {}
+    for preset, steps, sse_max, u_max in CLI_RUNS:
+        summary, got = cli_json(["run", "--preset", preset, "--steps",
+                                 str(steps)])
+        counts[f"CLI run {preset} (phase 16)"] = got["box_admm"]
+        cli_report[preset] = {"launches": got, **{
+            k: summary[k] for k in ("steady_state_error", "u_abs_max",
+                                    "tracking_mse", "final_state")}}
+        if got["box_admm"] != steps:
+            fail(f"phase 16 CLI run {preset}: {got} launches in {steps} "
+                 "steps")
+        if not summary["steady_state_error"] < sse_max:
+            fail(f"phase 16 CLI run {preset}: steady-state error "
+                 f"{summary['steady_state_error']} >= {sse_max}")
+        if not summary["u_abs_max"] <= u_max + BOUND_SLACK:
+            fail(f"phase 16 CLI run {preset}: |u| {summary['u_abs_max']}")
+        if not all(map(math.isfinite, summary["final_state"])):
+            fail(f"phase 16 CLI run {preset}: final state "
+                 f"{summary['final_state']}")
+    summary, got = cli_json(["sweep", "--preset", "duffing", "--batch",
+                             str(SWEEP_BATCH), "--steps", str(SWEEP_STEPS)])
+    counts["CLI sweep duffing (phase 16)"] = got["box_admm"]
+    cli_report["sweep"] = {"launches": got, **summary}
+    if got["box_admm"] != SWEEP_STEPS or summary["finite_fraction"] != 1.0:
+        fail(f"phase 16 CLI sweep: {got} launches, finite fraction "
+             f"{summary['finite_fraction']}")
+    report["cli"] = cli_report
+    report["card"] = card
+    print("phase 16 serving " + json.dumps(report), flush=True)
+    return counts, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -2066,7 +2424,19 @@ def main() -> int:
     # ---- 15. the Revise_2 loops (per-step DARE terminal synthesis) ----
     t15 = time.perf_counter()
     revise2_counts = phase_revise2(device, card)
-    print(f"phase 15: {time.perf_counter() - t15:.1f} s; phases 1-15: "
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
+    # ---- 16. the serving API and the CLI ----
+    t16 = time.perf_counter()
+    serving_counts, serving = phase_serving(
+        device, card, {"pallas": run_kernel, "xla": run_plain},
+        (mse_k, sse_k), {"pallas": slice_line["kernel_route"]["ms_per_step"],
+                         "xla": slice_line["plain_route"]["ms_per_step"]})
+    print(json.dumps({"serving": {
+        k: serving[k] for k in serving
+        if k.startswith("latency") or k == "fused_loop_ms_per_step"},
+        "card": card}), flush=True)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s; phases 1-16: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
@@ -2080,7 +2450,8 @@ def main() -> int:
         **{f"{name} (phase 14)": c["box_admm"]
            for name, c in estimator_counts.items()},
         **{f"{name} bench (phase 15)": c["box_admm"]
-           for name, c in revise2_counts.items()}}
+           for name, c in revise2_counts.items()},
+        **serving_counts}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -15,7 +15,8 @@ over field by field, and the engine raises ``NotImplementedError`` on them
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -119,6 +120,26 @@ class RunConfig:
     lift: LiftConfig = dataclasses.field(default_factory=LiftConfig)
     mpc: MPCConfig = dataclasses.field(default_factory=MPCConfig)
     update: UpdateConfig = dataclasses.field(default_factory=UpdateConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "RunConfig":
+        """The config a :meth:`to_json` dict (this package's or the JAX
+        package's) describes; JSON lists come back as the tuples they
+        were."""
+        tup = lambda v: tuple(v) if isinstance(v, list) else v
+        d = {k: tup(v) for k, v in d.items()}
+        for key, sub in (("data", DataConfig), ("lift", LiftConfig),
+                         ("mpc", MPCConfig), ("update", UpdateConfig)):
+            if isinstance(d.get(key), dict):
+                d[key] = sub(**{k: tup(v) for k, v in d[key].items()})
+        return cls(**d)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RunConfig":
+        return cls.from_dict(json.loads(s))
 
 
 def duffing_nn_preset() -> RunConfig:

@@ -29,6 +29,11 @@ This module imports no JAX. ``arrays`` is a dict:
   ``"x_max"`` and ``"ref_state"`` (the ``MPCParams`` arrays);
 - ``"x_init"`` (optional): the initial plant state; the plant's default
   (``System.x_init`` on every channel) where absent.
+
+:func:`controller_state_from_numpy` carries a serving controller's state
+across the same way (``engine/controller.py::ControllerState``'s fields
+by name), so that the port's controller can go on from a JAX
+controller's state mid-run.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from . import configs as C
 from .device import DeviceLike, resolve_device
 from .edmd.rls import GramRLSState, SqrtRLSState, StorageState
 from .edmd.windowed import WindowState
+from .engine.controller import ControllerState
 from .engine.core import MPCParams
 from .engine.loop import make_closed_loop
 from .lifts.base import (
@@ -55,6 +61,7 @@ from .lifts.mlp import MLP, encoder_dictionary
 from .lifts.rbf import RBF, rbf_dictionary
 from .run import Pipeline, engine_config, ref_fn_for, store_dtype
 from .systems.library import get_system
+from .tree import host_numpy, tree_map
 from .types import LinearModel, RLSState
 
 _INT = {"count", "idx"}
@@ -69,6 +76,17 @@ def _state_class(fields: Dict[str, Any]):
         if fields.get(key) is not None:
             return cls
     raise ValueError(f"no estimator state has the fields {sorted(fields)}")
+
+
+def _estimator_from_numpy(r: Dict[str, Any], cfg: C.RunConfig, leaf):
+    state_cls = _state_class(r)
+    state = state_cls(**{k: leaf(k, r[k]) for k in state_cls._fields
+                         if r.get(k) is not None})
+    store = store_dtype(cfg)
+    if state_cls is WindowState and store is not None:
+        state = state._replace(**{k: getattr(state, k).to(store)
+                                  for k in _RINGS})
+    return state
 
 
 def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
@@ -101,14 +119,7 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
 
     a, b, c = arrays["model0"]
     model0 = LinearModel(A=t(a), B=t(b), C=t(c))
-    r = arrays["rls0"]
-    state_cls = _state_class(r)
-    rls0 = state_cls(**{k: leaf(k, r[k]) for k in state_cls._fields
-                        if r.get(k) is not None})
-    store = store_dtype(cfg)
-    if state_cls is WindowState and store is not None:
-        rls0 = rls0._replace(**{k: getattr(rls0, k).to(store)
-                                for k in _RINGS})
+    rls0 = _estimator_from_numpy(arrays["rls0"], cfg, leaf)
     p = arrays["params"]
     opt = lambda k: None if p.get(k) is None else t(p[k])
     params = MPCParams(
@@ -141,9 +152,7 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
 
 def pipeline_to_numpy(pipe: Pipeline) -> Dict[str, Any]:
     """The inverse of :func:`pipeline_from_numpy` (for round trips)."""
-    def n(x):
-        x = x.detach().cpu()
-        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    n = host_numpy
 
     d = pipe.dictionary
     arrays = {"normalizer": (n(d.mu), n(d.sc)) if d.is_normalized else None}
@@ -169,3 +178,61 @@ def pipeline_to_numpy(pipe: Pipeline) -> Dict[str, Any]:
         "x_init": n(pipe.x_init),
     })
     return arrays
+
+
+def _absent(v) -> bool:
+    return v is None or (isinstance(v, tuple) and not v)
+
+
+def controller_state_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
+                                device: DeviceLike = None,
+                                dtype: torch.dtype = torch.float32
+                                ) -> ControllerState:
+    """A ``ControllerState`` from numpy arrays under its field names:
+    ``"model"`` (A, B, C), ``"rls"`` (the estimator's fields, as
+    ``"rls0"`` above), ``"u_prev"``, ``"warm_x"``, ``"warm_y"`` (None or
+    absent without the 'full' warm start), ``"z_prev"``, ``"x_prev"``,
+    ``"have_prev"``, ``"res_ema"`` and ``"cert"`` ((P, K, gamma), or None
+    or absent without terminal synthesis). A fleet's arrays carry the
+    plant axis first; a single controller's (``have_prev`` a scalar) get
+    a plant axis of one. A carried KKT inverse (``"kkt_inv"``) is ROADMAP
+    L3 and refused."""
+    dev = resolve_device(device)
+    if not _absent(arrays.get("kkt_inv")):
+        raise NotImplementedError(
+            "the carried KKT inverse is not ported yet (ROADMAP queue A, L3)")
+    single = np.ndim(arrays["have_prev"]) == 0
+    add_axis = (lambda a: np.asarray(a)[None]) if single else np.asarray
+    t = lambda a: torch.tensor(add_axis(a), dtype=dtype, device=dev)
+    leaf = lambda k, a: (torch.tensor(add_axis(a), dtype=torch.int32,
+                                      device=dev) if k in _INT else t(a))
+    opt = lambda k, make: (() if _absent(arrays.get(k))
+                           else make(arrays[k]))
+    return ControllerState(
+        model=LinearModel(*(t(a) for a in arrays["model"])),
+        rls=_estimator_from_numpy(arrays["rls"], cfg, leaf),
+        u_prev=t(arrays["u_prev"]),
+        warm_x=t(arrays["warm_x"]),
+        warm_y=opt("warm_y", t),
+        z_prev=t(arrays["z_prev"]),
+        x_prev=t(arrays["x_prev"]),
+        have_prev=torch.tensor(add_axis(arrays["have_prev"]),
+                               dtype=torch.bool, device=dev),
+        res_ema=t(arrays["res_ema"]),
+        cert=opt("cert", lambda c: tuple(t(a) for a in c)),
+    )
+
+
+def controller_state_to_numpy(state: ControllerState) -> Dict[str, Any]:
+    """The inverse of :func:`controller_state_from_numpy`, plant axis
+    kept; ``()`` parts come back as None."""
+    n = lambda tree: tree_map(host_numpy, tree)
+    return {
+        "model": tuple(n(state.model)),
+        "rls": {k: n(v) for k, v in state.rls._asdict().items()},
+        **{k: n(getattr(state, k)) for k in (
+            "u_prev", "warm_x", "z_prev", "x_prev", "have_prev", "res_ema")},
+        "warm_y": n(state.warm_y) if isinstance(state.warm_y, torch.Tensor)
+        else None,
+        "cert": None if _absent(state.cert) else n(state.cert),
+    }

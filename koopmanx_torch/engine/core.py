@@ -15,8 +15,12 @@ output-space (low-rank) KKT inverse for py < m on the plain route
 (:897-984: ``rls``, ``rls_chol``, ``rls_sqrt``, the windowed Woodbury lane
 and refit from the ring buffers, ``storage``) with the model guard
 (:988-1008) applied per scenario; and ``change_reset`` (:1015-1047). Every function takes a
-leading scenario axis where the JAX package was ``vmap``-ed, and the step
-index is a Python int, so each ``lax.cond`` on it is a plain branch.
+leading scenario axis where the JAX package was ``vmap``-ed. The step
+index is a Python int, so each ``lax.cond`` on it is a plain branch, or,
+for a serving fleet whose episode clocks differ, a ``(B,)`` int64 tensor
+of per-plant steps (JAX ``vmap``-ed the index per plant): the reference
+windows and the dither are then per plant, and the refit and anchor
+schedules per-plant selects, computed only where some plant is due.
 Options of paths not ported yet raise ``NotImplementedError`` naming their
 ROADMAP item (:func:`check_supported`).
 """
@@ -64,6 +68,7 @@ from ..edmd.windowed import (
 from ..lifts.base import Dictionary
 from ..ops.linalg import spd_inverse
 from ..types import LinearModel, QPSolution, model_from_rls
+from .ref import Step
 
 
 class MPCParams(NamedTuple):
@@ -223,6 +228,17 @@ def _select(pred: Tensor, new, old):
     return type(new)(*out)
 
 
+def host_to(step: Step, device: torch.device) -> Step:
+    """``step`` (per-plant steps or a mask) on ``device``: an int stays an
+    int; a host tensor is copied from pinned memory without waiting for
+    the device (no host synchronization)."""
+    if not isinstance(step, Tensor) or step.device == device:
+        return step
+    if device.type == "cuda":
+        step = step.pin_memory()
+    return step.to(device, non_blocking=True)
+
+
 class ControlDecision(NamedTuple):
     """What :func:`make_control_solver` produces for one step; the fields
     from ``cert`` on feed the carry's certificate and the Revise_2 monitor
@@ -232,7 +248,7 @@ class ControlDecision(NamedTuple):
     u_applied: Tensor  # (B, m)
     warm_x: Tensor  # (B, N*m) shifted, sanitized primal warm start
     sol: QPSolution  # sol.y is (B, dual_dim)
-    r_window: Tensor  # (horizon, py)
+    r_window: Tensor  # (horizon, py); (B, horizon, py) for per-plant steps
     cert: Any = ()  # guarded (P, K, gamma), or () when synthesis is off
     cert_ok: Optional[Tensor] = None  # (B,) this step's synthesis passed
     p_lyap: Optional[Tensor] = None  # (B, nlift, nlift) the held P
@@ -326,7 +342,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
     box_solver = make_box_qp_solver(qp_cfg, backend=cfg.qp_backend)
 
     def synthesis(params: MPCParams, model: LinearModel, cert, x: Tensor,
-                  step: int):
+                  step: Step):
         """The DARE certificate of each scenario's (online-updated) model,
         held per scenario against the previous one where it fails the
         guard: P, K and gamma finite, V at the anchor psi(x - r) >= 0 and
@@ -337,10 +353,11 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
         if params.ref_state is not None:
             ref_full = params.ref_state
         else:
-            r0 = ref_fn(step)[0]
+            r0 = ref_fn(step)[..., 0, :]
             k = min(r0.shape[-1], n)
-            ref_full = torch.zeros((n,), dtype=x.dtype, device=x.device)
-            ref_full[:k] = r0[:k]
+            ref_full = torch.zeros(r0.shape[:-1] + (n,), dtype=x.dtype,
+                                   device=x.device)
+            ref_full[..., :k] = r0[..., :k]
         ref_full = ref_full.expand(x.shape)
         tc = synthesize_terminal(model, params.q_lift, params.r_block)
         # dlqr gives u = -K z; the certificate holds the reference's u = K z
@@ -362,11 +379,12 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
         return held, ok, ref_full, terminal, c_term
 
     def control_solve(params: MPCParams, model: LinearModel, z: Tensor,
-                      u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: int,
+                      u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: Step,
                       cert: Any = (), x: Optional[Tensor] = None
                       ) -> ControlDecision:
         """``cert`` and the plant state ``x`` are read under terminal
         synthesis only."""
+        step = host_to(step, z.device)
         revise2 = {}
         terminal = params.terminal
         if cfg.terminal_synthesis:
@@ -399,7 +417,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
                 for f in pred
             ))
         r_window = ref_fn(step)  # (horizon, py); py = nlift when lifted
-        yr = r_window.reshape(-1)
+        yr = r_window.flatten(-2)
         # extra inequality rows: the applied window on du_0 ('rows'; one
         # selector [I_m 0] shared by every scenario), the state box on the
         # prediction F1 z + F2 x (F2 per scenario)
@@ -462,7 +480,10 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
         )
         if cfg.dither > 0.0:
             # deterministic multi-sine probe for persistent excitation
-            t = torch.tensor(float(step), dtype=z.dtype, device=z.device)
+            if isinstance(step, Tensor):
+                t = step.to(z.dtype)[:, None]
+            else:
+                t = torch.tensor(float(step), dtype=z.dtype, device=z.device)
             probe = cfg.dither * (torch.sin(0.37 * t)
                                   + 0.5 * torch.sin(1.13 * t + 1.0))
             first_move = torch.clamp(first_move + probe, params.u_min,
@@ -489,9 +510,17 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
 def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
     """One (z, u, z+, c_target) observation per scenario at loop step
     ``step`` -> refreshed estimator and guarded model. Returns
-    ``(rls, new_model)``."""
+    ``(rls, new_model)``. Per-plant steps come as a (B,) tensor, best on
+    the host: the schedules ask it which plants are due without waiting
+    for the device."""
     check_supported(cfg)
     nlift = dictionary.nlift
+    ridge = max(cfg.rls_ridge, 1e-5)
+
+    def refit(state: WindowState, warm) -> LinearModel:
+        late = cfg.window_filter_late > 0 and not warm
+        iters = cfg.window_filter_late if late else cfg.window_filter
+        return window_model(state, nlift, ridge=ridge, schulz_iters=iters)
 
     def windowed_refit(state: WindowState, step: int):
         """The refit while ``step < window_filter_warmup``, then every
@@ -501,25 +530,49 @@ def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
         if not (cfg.window_refit_every <= 1 or warm
                 or step % cfg.window_refit_every == 0):
             return None
-        late = cfg.window_filter_late > 0 and not warm
-        iters = cfg.window_filter_late if late else cfg.window_filter
-        return window_model(state, nlift, ridge=max(cfg.rls_ridge, 1e-5),
-                            schulz_iters=iters)
+        return refit(state, warm)
+
+    def windowed_refit_per_plant(state: WindowState, model: LinearModel,
+                                 step: Tensor) -> Optional[LinearModel]:
+        """:func:`windowed_refit` with a (B,) step per plant: each chain
+        runs where some plant is due for it, and a plant not due keeps
+        ``model``. None where no plant is due."""
+        warm = step < cfg.window_filter_warmup
+        due = torch.ones_like(warm) if cfg.window_refit_every <= 1 else (
+            warm | (step % cfg.window_refit_every == 0))
+        if not bool(due.any()):
+            return None
+        chains = (((True, due & warm), (False, due & ~warm))
+                  if cfg.window_filter_late > 0 else ((True, due),))
+        new_model = model
+        for chain_warm, pick in chains:
+            if bool(pick.any()):
+                new_model = _select(host_to(pick, model.A.device),
+                                    refit(state, chain_warm), new_model)
+        return new_model
 
     def estimator_update(rls, model: LinearModel, z: Tensor, u: Tensor,
-                         z_next: Tensor, c_target: Tensor, step: int):
+                         z_next: Tensor, c_target: Tensor, step: Step):
         if cfg.update == "off":
             return rls, model
+        per_plant = isinstance(step, Tensor)
         if cfg.update == "windowed" and cfg.window_carry == "woodbury":
             rls_new = window_update_carry(rls, z, u, z_next, c_target,
                                           polish=cfg.window_polish)
-            if cfg.window_anchor > 0 and (step + 1) % cfg.window_anchor == 0:
-                rls_new = window_reanchor(rls_new, max(cfg.rls_ridge, 1e-5))
+            if cfg.window_anchor > 0:
+                due = (step + 1) % cfg.window_anchor == 0
+                if per_plant and bool(due.any()):
+                    rls_new = _select(host_to(due, z.device),
+                                      window_reanchor(rls_new, ridge),
+                                      rls_new)
+                elif not per_plant and due:
+                    rls_new = window_reanchor(rls_new, ridge)
             new_model = window_model_carry(rls_new, nlift)
         elif cfg.update == "windowed":
             # the ring absorbs every observation, refit or not
             rls_new = window_update(rls, z, u, z_next, c_target)
-            new_model = windowed_refit(rls_new, step)
+            new_model = (windowed_refit_per_plant(rls_new, model, step)
+                         if per_plant else windowed_refit(rls_new, step))
         elif cfg.update == "rls":
             rls_new = rls_update_ab(rls, z, u, z_next, lam=cfg.rls_lambda,
                                     symmetrize=cfg.symmetrize)

@@ -12,7 +12,7 @@ every tensor carries the scenario axis first and time is a Python loop.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -128,9 +128,16 @@ def revise2_monitors(dictionary: Dictionary, cfg: EngineConfig,
 def make_closed_loop(system: System, dictionary: Dictionary,
                      cfg: EngineConfig, ref_fn: Callable[[int], Tensor]):
     """Build ``closed_loop(params, x0, model0, rls0, theta0=None,
-    theta1=None) -> (LoopCarry, StepLog)`` over a batch of scenarios: every
-    argument carries a leading scenario axis B; plant parameters may also
-    be shared scalars (None = the system's nominal and switched values)."""
+    theta1=None, u0=None, carry0=None, step_offset=0) -> (LoopCarry,
+    StepLog)`` over a batch of scenarios: every argument carries a leading
+    scenario axis B; plant parameters may also be shared scalars (None =
+    the system's nominal and switched values). ``u0`` seeds the applied
+    input (the du accumulator); ``carry0`` resumes from an earlier run's
+    carry (``x0``, ``model0``, ``rls0`` and ``u0`` are then unused) and
+    ``step_offset`` numbers its steps from there, so a run cut into
+    chunks is the uncut run (``koopmanx/engine/loop.py:279-319``).
+    ``closed_loop.initial_carry(params, x0, model0, rls0, u0=None)`` is
+    the carry a run starts from."""
     plant_step = make_step(system, cfg.h, cfg.integrator)
     m = system.m
     control_solve = make_control_solver(cfg, ref_fn, m, dictionary)
@@ -188,18 +195,14 @@ def make_closed_loop(system: System, dictionary: Dictionary,
                        cert_fresh=dec.cert_ok)
         return new_carry, log
 
-    def closed_loop(params: MPCParams, x0: Tensor, model0: LinearModel,
-                    rls0, theta0=None, theta1=None
-                    ) -> Tuple[LoopCarry, StepLog]:
+    def initial_carry(params: MPCParams, x0: Tensor, model0: LinearModel,
+                      rls0, u0: Optional[Tensor] = None) -> LoopCarry:
         dtype, dev = x0.dtype, x0.device
-        th0 = as_params(system.theta0 if theta0 is None else theta0, dtype, dev)
-        th1 = as_params(system.theta1 if theta1 is None else theta1, dtype, dev)
-        theta_sched = make_switch_schedule(th0, th1, cfg.switch_step)
         batch = x0.shape[0]
         zeros = lambda k: torch.zeros((batch, k), dtype=dtype, device=dev)
-        carry = LoopCarry(
+        return LoopCarry(
             x=x0,
-            u_applied=zeros(m),
+            u_applied=zeros(m) if u0 is None else u0,
             model=model0,
             rls=rls0,
             warm_x=zeros(cfg.horizon * m),
@@ -209,9 +212,21 @@ def make_closed_loop(system: System, dictionary: Dictionary,
             cert=initial_cert(cfg, params, dictionary.nlift, m, batch,
                               dtype, dev),
         )
+
+    def closed_loop(params: MPCParams, x0: Tensor, model0: LinearModel,
+                    rls0, theta0=None, theta1=None, u0: Optional[Tensor] = None,
+                    carry0: Optional[LoopCarry] = None, step_offset: int = 0
+                    ) -> Tuple[LoopCarry, StepLog]:
+        dtype, dev = x0.dtype, x0.device
+        th0 = as_params(system.theta0 if theta0 is None else theta0, dtype, dev)
+        th1 = as_params(system.theta1 if theta1 is None else theta1, dtype, dev)
+        theta_sched = make_switch_schedule(th0, th1, cfg.switch_step)
+        batch = x0.shape[0]
+        carry = (initial_carry(params, x0, model0, rls0, u0)
+                 if carry0 is None else carry0)
         logs = []
         with torch.inference_mode():
-            for step in range(cfg.steps):
+            for step in range(step_offset, step_offset + cfg.steps):
                 carry, log = one_step(params, carry, step, theta_sched)
                 logs.append(log)
         stacked = {k: torch.stack([log[k] for log in logs], dim=1)
@@ -228,6 +243,7 @@ def make_closed_loop(system: System, dictionary: Dictionary,
                 stacked[k] = like.expand((batch, cfg.steps) + shape)
         return carry, StepLog(**stacked)
 
+    closed_loop.initial_carry = initial_carry
     return closed_loop
 
 

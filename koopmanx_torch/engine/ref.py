@@ -3,28 +3,36 @@
 Each factory returns ``ref_fn(step) -> (horizon, py)``: the receding
 window r_k .. r_{k+N-1} for the MPC cost, with ``step`` a Python int. The
 window's index is ``j = step + arange(horizon)``, cast to the run's dtype
-where the JAX package casts it.
+where the JAX package casts it. ``step`` may also be a ``(B,)`` int64
+tensor of per-plant steps (the serving fleet's episode clocks, which JAX
+``vmap``-ed); the time-varying signals then give one window per plant,
+``(B, horizon, py)``, and the constant ones their shared window.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Union
 
 import torch
 from torch import Tensor
 
 from ..lifts.base import Dictionary
 
-RefFn = Callable[[int], Tensor]
+Step = Union[int, Tensor]  # a step index, or (B,) per-plant steps
+RefFn = Callable[[Step], Tensor]
 
 
-def _window(step: int, horizon: int, device) -> Tensor:
+def _window(step: Step, horizon: int, device) -> Tensor:
+    """(horizon,) indices, or (B, horizon) for per-plant steps."""
+    if isinstance(step, Tensor):
+        return step.to(device)[:, None] + torch.arange(horizon, device=device)
     return step + torch.arange(horizon, device=device)
 
 
 def _first_channel(r1: Tensor, py: int) -> Tensor:
-    """(horizon,) -> (horizon, py), zero but for the first channel."""
-    out = torch.zeros((r1.shape[0], py), dtype=r1.dtype, device=r1.device)
-    out[:, 0] = r1
+    """(..., horizon) -> (..., horizon, py), zero but for the first
+    channel."""
+    out = torch.zeros(r1.shape + (py,), dtype=r1.dtype, device=r1.device)
+    out[..., 0] = r1
     return out
 
 
@@ -34,7 +42,7 @@ def constant(value, horizon: int, py: int = 1,
     v = torch.as_tensor(value, dtype=dtype, device=device).expand(py)
     window = v.expand(horizon, py)
 
-    def ref_fn(step: int) -> Tensor:
+    def ref_fn(step: Step) -> Tensor:
         del step
         return window
 
@@ -46,7 +54,7 @@ def sine(amp, omega, horizon: int, py: int = 1, offset=0.0,
     """r_j = amp*sin(omega*j) + offset on the first channel
     (duffing.py:744: ``sin(0.01 j)``)."""
 
-    def ref_fn(step: int) -> Tensor:
+    def ref_fn(step: Step) -> Tensor:
         j = _window(step, horizon, device).to(dtype)
         return _first_channel(amp * torch.sin(omega * j) + offset, py)
 
@@ -57,7 +65,7 @@ def cos_sin_mix(a, wa, b, wb, horizon: int, py: int = 1,
                 dtype: torch.dtype = torch.float32, device=None) -> RefFn:
     """r_j = a*cos(wa*j) + b*sin(wb*j) (duffing.py:755)."""
 
-    def ref_fn(step: int) -> Tensor:
+    def ref_fn(step: Step) -> Tensor:
         j = _window(step, horizon, device).to(dtype)
         return _first_channel(a * torch.cos(wa * j) + b * torch.sin(wb * j),
                               py)
@@ -70,7 +78,7 @@ def square(amp, period: int, horizon: int, py: int = 1,
     """r = amp * (-1)^ceil(j/period) square wave (duffing.py:745), from the
     integer window as in the JAX package."""
 
-    def ref_fn(step: int) -> Tensor:
+    def ref_fn(step: Step) -> Tensor:
         j = _window(step, horizon, device)
         sign = 1.0 - 2.0 * (torch.ceil(j / period) % 2)
         return _first_channel(amp * sign.to(dtype), py)
@@ -83,7 +91,7 @@ def chirp(amp, horizon: int, py: int = 1, offset=0.7,
     """r_j = amp*sin(j/(20+0.01j)) + offset (duffing.py:742, commented out
     there)."""
 
-    def ref_fn(step: int) -> Tensor:
+    def ref_fn(step: Step) -> Tensor:
         j = _window(step, horizon, device).to(dtype)
         return _first_channel(amp * torch.sin(j / (20.0 + 0.01 * j)) + offset,
                               py)
@@ -97,7 +105,7 @@ def encoded(base: RefFn, dictionary: Dictionary, n: int) -> RefFn:
     with (``vanderpol.py:668-675``), giving (horizon, nlift)."""
     del n  # the JAX signature's; the dictionary knows its input width
 
-    def ref_fn(step: int) -> Tensor:
+    def ref_fn(step: Step) -> Tensor:
         return dictionary(base(step))
 
     return ref_fn
@@ -110,7 +118,7 @@ def constant_state(values, horizon: int, dtype: torch.dtype = torch.float32,
     v = torch.as_tensor(values, dtype=dtype, device=device)
     window = v.expand(horizon, v.shape[-1])
 
-    def ref_fn(step: int) -> Tensor:
+    def ref_fn(step: Step) -> Tensor:
         del step
         return window
 

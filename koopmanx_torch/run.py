@@ -6,10 +6,13 @@ Fourier features), ``_mpc_params`` :132-203 (lifted tracking included),
 :282-412, with every estimator's initial state: the windowed estimator's
 prefilled ring, compressed or not, and the Woodbury lane's carried
 statistics; the storage method's training Grams; the SM, Gram-carry and
-square-root RLS priors, or their warm starts from the training Grams).
+square-root RLS priors, or their warm starts from the training Grams),
+``run_single`` :415 (one scenario as a batch of one) and
+``run_resumable`` :438-499 (the loop in checkpointed chunks).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, NamedTuple, Optional
 
@@ -45,6 +48,7 @@ from .lifts.mlp import MLP, encoder_dictionary, mlp_init
 from .lifts.rbf import kmeans, rbf_dictionary
 from .systems.data import Snapshots, collect, uniform
 from .systems.library import get_system
+from .tree import tree_map
 from .types import LinearModel
 
 
@@ -400,3 +404,51 @@ def run_scenarios(pipe: Pipeline, batch):
         batch.theta0,
         batch.theta1,
     )
+
+
+def _as_batch_of_one(pipe: Pipeline):
+    """The pipeline's loop arguments with a scenario axis of one."""
+    return (replicate(pipe.params, 1), pipe.x_init.unsqueeze(0),
+            replicate(pipe.model0, 1), replicate(pipe.rls0, 1))
+
+
+def _squeeze(tree):
+    return tree_map(lambda t: t[0], tree)
+
+
+def run_single(pipe: Pipeline, theta0=None, theta1=None):
+    """Run the pipeline's one scenario from ``x_init``; returns (LoopCarry,
+    StepLog) without the scenario axis (the log is (T, ...))."""
+    carry, log = run_batch(pipe.closed_loop, *_as_batch_of_one(pipe),
+                           theta0, theta1)
+    return _squeeze(carry), _squeeze(log)
+
+
+def run_resumable(pipe: Pipeline, total_steps: int, chunk_steps: int,
+                  checkpoint_path: Optional[str] = None,
+                  resume: bool = False):
+    """:func:`run_single` in chunks of ``chunk_steps``, the carry handed
+    from each chunk to the next and, with ``checkpoint_path``, saved after
+    each (``eval.persist.save_pytree``, with the next chunk's first step).
+    ``resume=True`` starts from that checkpoint where it exists. Returns
+    (LoopCarry, StepLog) of the chunks run, without the scenario axis, the
+    logs joined along time."""
+    from .eval.persist import load_pytree, save_pytree
+
+    cfg = dataclasses.replace(pipe.engine_cfg, steps=chunk_steps)
+    loop = make_closed_loop(
+        get_system(pipe.config.system), pipe.dictionary, cfg,
+        ref_fn_for(pipe.config, pipe.params.q_block.shape[-1], pipe.device,
+                   pipe.dictionary))
+    args = _as_batch_of_one(pipe)
+    carry, start = None, 0
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        carry, start = load_pytree(checkpoint_path, loop.initial_carry(*args))
+    logs = []
+    for offset in range(start, total_steps, chunk_steps):
+        carry, log = loop(*args, carry0=carry, step_offset=offset)
+        logs.append(log)
+        if checkpoint_path:
+            save_pytree(checkpoint_path, carry, meta=offset + chunk_steps)
+    log = tree_map(lambda *parts: torch.cat(parts, dim=1), *logs)
+    return _squeeze(carry), _squeeze(log)

@@ -230,7 +230,9 @@ def main() -> int:
                 torch.cuda.set_sync_debug_mode("default")
         syncs = collections.Counter(
             f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
-            if "synchroniz" in str(w.message))
+            # not the mode's one-time notice that it is a prototype
+            if "synchroniz" in str(w.message)
+            and "prototype" not in str(w.message))
         admm_us = sum(us for name, (us, _) in rows if "box_admm" in name)
         admm_n = sum(n for name, (_, n) in rows if "box_admm" in name)
         return lines, {
