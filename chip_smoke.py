@@ -99,8 +99,8 @@ Phases, each of which fails the run on error:
    finite (the carried statistics included), |u| <= 2, kernel vs plain
    route over the first 16 steps in float64, and the float32 batch-mean
    control quality of x1. Prints the x1 tail means before and after the
-   switch, both routes' warm wall time in turns, and each run's peak
-   device memory;
+   switch, both routes' warm wall time (one run each, plain first), and
+   each run's peak device memory;
 10. drive the ``duffing_rff`` preset (32 random Fourier features plus the
    state, nlift 34, N = 10, the Woodbury lane) at 8192 scenarios for 200
    steps, and the phase 9 loop with its ring stored in bfloat16, both
@@ -175,8 +175,8 @@ Phases, each of which fails the run on error:
    control quality of x1 against the state reference over the scenarios
    finite on both routes within 1 % / 5 %.
    Prints the share of scenario-steps whose certificate passed the
-   guard, each route's warm ms/step in turns and each run's peak device
-   memory;
+   guard, each route's warm ms/step (one run each, plain first) and
+   each run's peak device memory;
 16. drive the serving API and the CLI, counts zeroed before each run and
    read after: ``BatchedController`` at 8192 plants of the flagship
    config (phase 3's pipelines and scenarios) for 200 calls against the
@@ -202,12 +202,40 @@ Phases, each of which fails the run on error:
    --steps 400`` on the card (the kernel route: one launch a step;
    steady-state error below 0.1 and 0.2, |u| within 2 and 8, a finite
    final state) and ``sweep --preset duffing --batch 8192 --steps 200``
-   (200 launches, every scenario finite).
+   (200 launches, every scenario finite);
+17. drive the other control laws at 8192 scenarios, f32, counts zeroed
+   before each run and read after: (a) ``revise2_duffing_bench_config``
+   with ``terminal_mode='lmi'`` (the Revise_2 LMI certificate each step:
+   13 sequential doubling DAREs; cut from the bench's 200 steps to 20),
+   scenario 0 started from an initial A with a NaN entry, through the
+   kernel route and the plain route: 20 ``box_admm`` launches, then 0;
+   every scenario the DARE mode keeps finite stays finite (x, u, the
+   held certificate), |u| <= 2, the poisoned scenario's first
+   certificate fails the guard with a NaN feasibility; the float64 gate
+   of phase 15 at 256 scenarios over 12 steps. Prints ms/step, the share
+   of fresh certificates, the share of each branch of the synthesis (the
+   DARE point, the detuned pair, the fallback), the largest feasibility
+   residual, one step's device operations, host synchronizations and
+   idle share, and what ``torch.linalg.eigvalsh`` itself does on the card
+   with a NaN entry and with an ill-conditioned float32 batch; (b) the
+   flagship with ``controller='lqr'`` for 60 steps: 0 launches, finite,
+   |u| <= 2, and a float64 ``BatchedController`` of 64 plants equal to
+   ``run_batch`` bit for bit; (c) the local-linearization baseline
+   (``run.build_local_linear``: the flagship's plant and weights on
+   psi(x) = [x; 1], N = 20) for 200 steps on both routes: 200 launches,
+   then 0, finite, |u| <= 2, steady-state error below 0.1, the float64
+   routes within 1e-9 at 256 scenarios; (d) ``drift_norm='spectral'`` on
+   the flagship for 20 steps, one step at a time, each drift within 1e-4
+   of numpy's float64 2-norm of the same model difference, with the host
+   synchronizations a step; (e) ``control.shooting.solve_shooting_pgd``
+   on phase 3's end-state models, the card against the CPU in float32
+   and float64.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
-line, a serving JSON line (phase 16's latencies), the card line
+line, a serving JSON line (phase 16's latencies), a control-laws JSON
+line (phase 17), the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -339,6 +367,40 @@ LATENCY_CALLS, LATENCY_WARMUP = {"fleet": 60, "single": 100}, 5
 # tank's the JAX package's
 CLI_RUNS = (("duffing", 300, 0.1, 2.0), ("tank", 400, 0.2, 8.0))
 SWEEP_BATCH, SWEEP_STEPS = BATCH, STEPS
+# phase 17: the other control laws at 8192 scenarios, f32. (a) the
+# revise2_duffing bench with the LMI terminal, cut from 200 steps to
+# LMI_STEPS: each step's synthesis is 13 sequential doubling DAREs (the
+# DARE point and the 12 grid points as one batched DARE, then 12
+# bisection points), ~80,000 eager operations a step; scenario POISONED
+# starts from an initial A with a NaN entry (its first certificate must
+# fail the guard, through the masked eigenvalues); the float64 gate of
+# phase 15 at EARLY_BATCH scenarios over LMI_F64_STEPS steps. (b) the
+# flagship with the LQR law over LQR_STEPS (no QP: no launch); its fleet
+# equals run_batch bit for bit at LQR_F64_BATCH over LQR_F64_CALLS in
+# float64. (c) the
+# local-linearization baseline on the flagship's plant and weights over
+# LOCAL_STEPS on both routes, each tracking r = 1 to a steady-state error
+# below LOCAL_SSE_MAX (the JAX package's own bound,
+# tests/test_local_linear.py; ~0.003 on an H100 in float32 at 8192
+# scenarios), their float64 gap at EARLY_BATCH over LOCAL_F64_STEPS within
+# LOCAL_F64_TOL. (d) drift_norm='spectral' on the flagship over
+# DRIFT_STEPS, each step's three drifts within DRIFT_RTOL of numpy's
+# float64 2-norm of the same model differences on the host. (e) the
+# shooting PGD on phase 3's end-state models, the card against the CPU,
+# each dtype within PGD_TOL or, where that does not hold, within ten times
+# the CPU's own change when A moves by one ulp (the flagship's models
+# amplify round-off through the 200 projected steps: one ulp of A moves
+# the float32 result past 1e-3 on the CPU)
+LMI_STEPS, LMI_F64_STEPS, POISONED = 20, 12, 0
+LQR_STEPS, LQR_F64_BATCH, LQR_F64_CALLS = 60, 64, 20
+LOCAL_STEPS, LOCAL_F64_STEPS, LOCAL_F64_TOL, LOCAL_SSE_MAX = (
+    STEPS, 60, 1e-9, 0.1)
+DRIFT_STEPS, DRIFT_RTOL = 20, 1e-4
+PGD_TOL = {"float32": 1e-4, "float64": 1e-9}
+# the CPU reference of (e) runs the first PGD_CPU_BATCH of the 8192
+# scenarios (they do not mix: the card's values there are the whole
+# call's), its autograd on the host being the phase's slowest part
+PGD_CPU_BATCH = 1024
 
 
 def fail(msg: str) -> None:
@@ -1376,14 +1438,19 @@ def phase_rbf128(device, card: str):
         if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
             fail(f"rbf128 x1 {what}: kernel {a} vs plain {b}")
 
+    # one warm run a route (plain, then kernel): the device-bound rbf128
+    # runs are among the longest of the script, which must stay well
+    # within its time limit
     walls = {run_plain: [], run_kernel: []}
-    for fn in (run_plain, run_kernel, run_kernel, run_plain):
+    for fn in (run_plain, run_kernel):
         walls[fn].append(timed(fn)[1])
     switch = run_kernel.pipe.config.switch_step
     x1 = log_k.x[..., 0]
     route = lambda runs: {"runs_s": runs,
-                          "ms_per_step": sum(runs) / 2 / RBF128_STEPS * 1e3,
-                          "solves_per_s": BATCH * RBF128_STEPS * 2 / sum(runs)}
+                          "ms_per_step": sum(runs) / len(runs)
+                          / RBF128_STEPS * 1e3,
+                          "solves_per_s": BATCH * RBF128_STEPS * len(runs)
+                          / sum(runs)}
     line = {"slice": "rbf128 bench loop, koopmanx_torch", "batch": BATCH,
             "steps": RBF128_STEPS, "switch_step": switch, "horizon": HORIZON,
             "nlift": run_kernel.pipe.dictionary.nlift, "dtype": "float32",
@@ -1909,11 +1976,14 @@ def phase_revise2(device, card: str):
                            (sse_k, sse_p, "steady-state error")):
             if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
                 fail(f"{name} x1 {what}: kernel {a} vs plain {b}")
+        # one warm run a route (plain, then kernel): the synthesis's
+        # eager steps make these the longest runs of the script
         walls = {runs["xla"]: [], runs["pallas"]: []}
-        for fn in (runs["xla"], runs["pallas"], runs["pallas"], runs["xla"]):
+        for fn in (runs["xla"], runs["pallas"]):
             walls[fn].append(timed(fn)[1])
         route = lambda r: {"runs_s": walls[r],
-                           "ms_per_step": sum(walls[r]) / 2 / steps * 1e3}
+                           "ms_per_step": sum(walls[r]) / len(walls[r])
+                           / steps * 1e3}
         lines[name] = {
             "steps": steps, "switch_step": cfg.switch_step,
             "nlift": run.pipe.dictionary.nlift,
@@ -2263,6 +2333,421 @@ def phase_serving(device, card: str, loops, fused_quality, fused_ms):
     return counts, report
 
 
+def step_report(fn, warm_up: bool = True):
+    """Calls of ``fn`` (a one-step loop from a fixed carry), after one
+    more unless ``warm_up`` is False: one timed (its wall ms), one with
+    its host synchronizations counted, one profiled (the device
+    operations, device-busy ms as the union of the kernels' intervals,
+    and the device's idle share against the timed call's wall)."""
+    import torch
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    if warm_up:
+        fn()
+    wall_ms = timed(fn)[1] * 1e3
+    syncs, sources = syncs_per_call(fn, calls=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith("aten::"))
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in spans:
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return {"wall_ms": wall_ms, "host_syncs": syncs,
+            "host_sync_sources": sources, "device_ops": len(spans),
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms}
+
+
+def one_step_loop(pipe, args, carry, offset: int, **engine):
+    """A one-step loop of ``pipe`` (engine fields replaced by ``engine``)
+    from ``carry`` at step ``offset``: ``fn() -> (carry, log)``."""
+    import dataclasses
+
+    from koopmanx_torch.engine.loop import make_closed_loop
+    from koopmanx_torch.run import ref_fn_for
+    from koopmanx_torch.systems.library import get_system
+
+    cfg = dataclasses.replace(pipe.engine_cfg, steps=1, **engine)
+    loop = make_closed_loop(
+        get_system(pipe.config.system), pipe.dictionary, cfg,
+        ref_fn_for(pipe.config, pipe.params.q_block.shape[-1], pipe.device,
+                   pipe.dictionary))
+    return lambda c=carry: loop(*args, carry0=c, step_offset=offset)
+
+
+def poisoned_loop(run):
+    """``run``'s loop with scenario POISONED started from an initial A
+    with a NaN entry; ``fn.args`` are the loop's arguments."""
+    from koopmanx_torch.engine.loop import run_batch
+    from koopmanx_torch.run import replicate
+
+    pipe, sc = run.pipe, run.batch
+    b = sc.x0.shape[0]
+    model0 = replicate(pipe.model0, b)
+    a = model0.A.clone()
+    a[POISONED, 0, 0] = float("nan")
+    args = (replicate(pipe.params, b), sc.x0, model0._replace(A=a),
+            replicate(pipe.rls0, b), sc.theta0, sc.theta1)
+
+    def fn():
+        return run_batch(pipe.closed_loop, *args)
+
+    fn.pipe, fn.batch, fn.args = pipe, sc, args
+    return fn
+
+
+def finite_rows(*tensors):
+    """Per scenario: every entry of every tensor finite."""
+    import torch
+
+    ok = None
+    for t in tensors:
+        f = torch.isfinite(t).reshape(t.shape[0], -1).all(-1)
+        ok = f if ok is None else ok & f
+    return ok
+
+
+def eigvalsh_probe(device):
+    """What ``torch.linalg.eigvalsh`` itself does on the card with a NaN
+    entry and with an ill-conditioned float32 batch (8192 SPD 31 x 31,
+    eigenvalues 1e-8 .. 1e4): the value or the error, never gated (the
+    port masks non-finite inputs, ``control/lmi.py::_eigvalsh``)."""
+    import torch
+
+    def attempt(m):
+        try:
+            w = torch.linalg.eigvalsh(m)
+            torch.cuda.synchronize()
+            return w, None
+        except RuntimeError as e:
+            return None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+    nan = torch.eye(4, device=device).repeat(3, 1, 1)
+    nan[1, 1, 1] = float("nan")
+    w, err = attempt(nan)
+    out = {"nan_entry": err or f"returned {w[1].tolist()}"}
+    gen = torch.Generator().manual_seed(5)
+    q, _ = torch.linalg.qr(torch.randn(BATCH, 31, 31, generator=gen,
+                                       dtype=torch.float64))
+    lam = torch.logspace(-8, 4, 31, dtype=torch.float64)
+    spd = (q * lam) @ q.transpose(-1, -2)
+    w, err = attempt(spd.to(device, torch.float32))
+    out["ill_conditioned_f32"] = err or {
+        "finite": bool(torch.isfinite(w).all()),
+        "max_abs_err_vs_f64": float((w.double().cpu() - lam).abs().max())}
+    return out
+
+
+def phase_lmi(device, card: str):
+    """Phase 17 (a): revise2_duffing with the LMI terminal on both routes,
+    scenario POISONED from a NaN in its initial A; the DARE mode's finite
+    scenarios must stay finite; the float64 gate; the step's anatomy.
+    Returns the kernel route's launch counts and the report."""
+    import torch
+    from koopmanx_torch.configs import revise2_duffing_bench_config
+    from koopmanx_torch.control.lmi import BRANCH_NAMES
+    from koopmanx_torch.engine import core
+
+    def make(backend, steps, mode="lmi"):
+        cfg = revise2_duffing_bench_config(steps, backend)
+        cfg.mpc.terminal_mode = mode
+        return cfg
+
+    # the DARE mode on the same scenarios, the reference of finiteness
+    dare = poisoned_loop(config_loop(make("pallas", LMI_STEPS, "dare"),
+                                     device))
+    carry, log = dare()
+    dare_finite = finite_rows(log.x, log.u, *carry.cert)
+    report, logs, counts = {"card": card}, {}, {}
+    real, record = core.solve_terminal_lmi, []
+
+    def recording(*a, **k):
+        res = real(*a, **k)
+        record.append((res.branch, res.feasibility))
+        return res
+
+    for backend in ("pallas", "xla"):
+        run = poisoned_loop(config_loop(make(backend, LMI_STEPS), device))
+        zero_counts()
+        core.solve_terminal_lmi = recording
+        try:
+            (carry, log), wall = timed(run)
+        finally:
+            core.solve_terminal_lmi = real
+        got = read_counts()
+        want = LMI_STEPS if backend == "pallas" else 0
+        print(f"phase 17 lmi ({backend}): {wall:.2f} s, launches {got}",
+              flush=True)
+        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+            fail(f"lmi {backend} launched {got} in {LMI_STEPS} steps")
+        finite = finite_rows(log.x, log.u, *carry.cert)
+        lost = dare_finite & ~finite
+        if bool(lost.any()):
+            fail(f"lmi {backend}: {int(lost.sum())} scenarios finite in "
+                 "the DARE mode went non-finite")
+        if float(log.u[finite].abs().max()) > 2.0:
+            fail(f"lmi {backend}: |u| > 2")
+        if bool(log.cert_fresh[POISONED, 0]):
+            fail(f"lmi {backend}: the poisoned scenario's first "
+                 "certificate passed the guard")
+        branch = torch.stack([b for b, _ in record])  # (T, B)
+        feas = torch.stack([f for _, f in record])
+        record.clear()
+        if not bool(torch.isnan(feas[0, POISONED])):
+            fail(f"lmi {backend}: the poisoned scenario's first "
+                 f"feasibility {float(feas[0, POISONED])}, not NaN")
+        logs[backend] = log
+        if backend == "pallas":
+            counts = got
+            run_k, carry_k = run, carry
+        report[backend] = {
+            "wall_s": wall, "ms_per_step": wall / LMI_STEPS * 1e3,
+            "scenarios_finite": int(finite.sum()),
+            "scenarios_finite_dare_mode": int(dare_finite.sum()),
+            "cert_fresh_share": float(log.cert_fresh.float().mean()),
+            "branch_share": {name: float((branch == i).float().mean())
+                             for i, name in enumerate(BRANCH_NAMES)},
+            "feasibility_max": float(feas[torch.isfinite(feas)].max()),
+            "feasibility_nan": int(torch.isnan(feas).sum()),
+            "u_abs_max": float(log.u[finite].abs().max())}
+    # float64: the kernel route against the plain route, phase 15's gate
+    # (EARLY_TOL, or ten times the plain route's one-ulp-of-x0 floor, the
+    # floor computed only where the tolerance alone does not hold)
+    runs = {b: config_loop(make(b, LMI_F64_STEPS), device, "float64",
+                           batch=EARLY_BATCH) for b in ("pallas", "xla")}
+    xs = {b: r()[1].x for b, r in runs.items()}
+    dx = (xs["pallas"] - xs["xla"]).abs().amax(-1)
+    early = {"batch": EARLY_BATCH, "steps": LMI_F64_STEPS,
+             "dx_f64": float(dx.max()), "tol": EARLY_TOL}
+    if not bool((dx <= EARLY_TOL).all()):
+        run = runs["xla"]
+        floor = torch.stack([
+            (run(torch.nextafter(run.x0, torch.full_like(run.x0, t)))[1].x
+             - xs["xla"]).abs().amax(-1) for t in (9.0, -9.0)]).amax(0)
+        floor = floor.cummax(dim=1).values
+        early["floor_f64"] = float(floor.max())
+        if not bool((dx <= torch.clamp(10.0 * floor, min=EARLY_TOL)).all()):
+            fail(f"lmi: float64 kernel and plain loops differ: {early}")
+    report["early_f64"] = early
+    # one step at the end state, kernel route
+    step = one_step_loop(run_k.pipe, run_k.args, carry_k, LMI_STEPS)
+    report["step"] = step_report(step, warm_up=False)
+    report["eigvalsh_on_the_card"] = eigvalsh_probe(device)
+    print("phase 17 lmi " + json.dumps(report), flush=True)
+    return counts, report
+
+
+def phase_lqr(device, card: str):
+    """Phase 17 (b): the flagship with the LQR law: no launch, finite,
+    |u| <= 2; the float64 fleet equals run_batch bit for bit."""
+    import torch
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.engine.controller import BatchedController
+
+    def make(steps):
+        cfg = flagship_config(steps, HORIZON, "pallas")
+        cfg.mpc.controller = "lqr"
+        return cfg
+
+    run = config_loop(make(LQR_STEPS), device)
+    zero_counts()
+    (carry, log), wall = timed(run)
+    got = read_counts()
+    if got != {"box_admm": 0, "fused_qp": 0, "fused_qp_soa": 0}:
+        fail(f"lqr launched {got}")
+    check_loop(carry, log, "lqr", LQR_STEPS)
+    mse, sse = quality_vs(log, torch.ones(BATCH, dtype=torch.bool,
+                                          device=log.x.device), 1.0)
+    run64 = config_loop(make(LQR_F64_CALLS), device, "float64",
+                        batch=LQR_F64_BATCH)
+    _, log64 = run64()
+    fleet = BatchedController.from_pipeline(run64.pipe, LQR_F64_BATCH)
+    xs, us, _ = serve(fleet, external_plant(run64.pipe, run64.batch),
+                      run64.x0, LQR_F64_CALLS)
+    same = torch.equal(xs, log64.x) and torch.equal(us, log64.u)
+    if not same:
+        fail("lqr: the float64 fleet differs from run_batch: "
+             f"dx {float((xs - log64.x).abs().max())}, "
+             f"du {float((us - log64.u).abs().max())}")
+    report = {"wall_s": wall, "ms_per_step": wall / LQR_STEPS * 1e3,
+              "launches": got["box_admm"], "mse_x1": mse, "sse_x1": sse,
+              "u_abs_max": float(log.u.abs().max()),
+              "fleet_equals_run_batch_f64": same, "card": card}
+    print("phase 17 lqr " + json.dumps(report), flush=True)
+    return report
+
+
+def local_linear_run(backend: str, device, dtype: str = "float32",
+                     batch: int = BATCH, steps: int = LOCAL_STEPS):
+    """The local-linearization loop on the flagship's plant and weights
+    (``run.build_local_linear``) over the bench's scenarios, a thunk."""
+    import torch
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.engine.scenario import sample_scenarios
+    from koopmanx_torch.run import build_local_linear, replicate
+    from koopmanx_torch.systems.library import get_system
+
+    cfg = flagship_config(steps, HORIZON, backend)
+    cfg.dtype = dtype
+    loop, params = build_local_linear(cfg, device)
+    sc = sample_scenarios(get_system(cfg.system),
+                          torch.Generator().manual_seed(0), batch,
+                          param_scale=0.15, dtype=getattr(torch, dtype),
+                          device=device)
+    args = (replicate(params, batch), sc.x0, sc.theta0, sc.theta1)
+
+    def run():
+        return loop(*args)
+
+    run.params, run.batch = params, sc
+    return run
+
+
+def phase_local_linear(device, card: str):
+    """Phase 17 (c): the local-linearization baseline on both routes:
+    LOCAL_STEPS launches, then 0; finite, |u| <= 2; the float64 gap."""
+    import torch
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.run import build_local_linear, replicate
+
+    report, counts = {"card": card}, {}
+    for backend in ("pallas", "xla"):
+        run = local_linear_run(backend, device)
+        zero_counts()
+        (carry, log), wall = timed(run)
+        got = read_counts()
+        want = LOCAL_STEPS if backend == "pallas" else 0
+        print(f"phase 17 local-linear ({backend}): {wall:.2f} s, launches "
+              f"{got}", flush=True)
+        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+            fail(f"local-linear {backend} launched {got}")
+        check_loop(carry, log, f"local-linear {backend}", LOCAL_STEPS)
+        mse, sse = quality_vs(log, torch.ones(BATCH, dtype=torch.bool,
+                                              device=log.x.device), 1.0)
+        report[backend] = {"wall_s": wall,
+                           "ms_per_step": wall / LOCAL_STEPS * 1e3,
+                           "mse_x1": mse, "sse_x1": sse,
+                           "u_abs_mean": float(log.u.abs().mean())}
+        if not sse <= LOCAL_SSE_MAX:
+            fail(f"local-linear {backend}: steady-state error {sse} > "
+                 f"{LOCAL_SSE_MAX}")
+        if backend == "pallas":
+            counts, end = got, carry
+    logs = {b: local_linear_run(b, device, "float64", EARLY_BATCH,
+                                LOCAL_F64_STEPS)()[1]
+            for b in ("pallas", "xla")}
+    gap = {k: float((getattr(logs["pallas"], k)
+                     - getattr(logs["xla"], k)).abs().max()) for k in "xu"}
+    report["gap_f64"] = {"batch": EARLY_BATCH, "steps": LOCAL_F64_STEPS,
+                         **gap,
+                         "tol": LOCAL_F64_TOL}
+    if not max(gap.values()) <= LOCAL_F64_TOL:
+        fail(f"local-linear: float64 routes differ: {gap}")
+    # one step from the end state (kernel route)
+    loop, params = build_local_linear(flagship_config(1, HORIZON, "pallas"),
+                                      device)
+    sc = run.batch
+    args = (replicate(params, BATCH), end.x, sc.theta0, sc.theta1,
+            end.u_applied)
+    report["step"] = step_report(lambda: loop(*args))
+    print("phase 17 local-linear " + json.dumps(report), flush=True)
+    return counts, report
+
+
+def phase_spectral_drift(device, card: str):
+    """Phase 17 (d): drift_norm='spectral' on the flagship, one step at a
+    time: each step's drifts against numpy's float64 2-norm of the same
+    model differences."""
+    import numpy as np
+    import torch
+    from koopmanx_torch.configs import flagship_config
+
+    run = config_loop(flagship_config(DRIFT_STEPS, HORIZON, "pallas"),
+                      device)
+    pipe, sc = run.pipe, run.batch
+    from koopmanx_torch.run import replicate
+
+    args = (replicate(pipe.params, BATCH), sc.x0,
+            replicate(pipe.model0, BATCH), replicate(pipe.rls0, BATCH),
+            sc.theta0, sc.theta1)
+    carry, worst = None, 0.0
+    for k in range(DRIFT_STEPS):
+        old = pipe.model0 if carry is None else carry.model
+        fn = one_step_loop(pipe, args, carry, k, drift_norm="spectral")
+        carry, log = fn()
+        for name, new_m, old_m in zip("abc", carry.model, old):
+            d = (new_m - old_m).double().cpu().numpy()
+            want = np.linalg.norm(d.reshape((-1,) + d.shape[-2:]), 2,
+                                  axis=(-2, -1))
+            got = getattr(log, f"drift_{name}")[:, 0].double().cpu().numpy()
+            if not np.array_equal(np.isnan(got), np.isnan(want)):
+                fail(f"spectral drift {name} step {k}: NaN pattern")
+            ok = ~np.isnan(want)
+            err = np.abs(got[ok] - want[ok])
+            if not (err <= DRIFT_RTOL * want[ok] + 1e-30).all():
+                fail(f"spectral drift {name} step {k}: "
+                     f"{float((err / np.maximum(want[ok], 1e-30)).max())}")
+            worst = max(worst, float((err / np.maximum(want[ok], 1e-30))
+                                     .max()) if err.size else 0.0)
+    syncs, sources = syncs_per_call(
+        one_step_loop(pipe, args, carry, DRIFT_STEPS, drift_norm="spectral"),
+        calls=1)
+    report = {"steps": DRIFT_STEPS, "worst_rel_err": worst,
+              "rtol": DRIFT_RTOL, "host_syncs_per_step": syncs,
+              "host_sync_sources": sources, "card": card}
+    print("phase 17 spectral drift " + json.dumps(report), flush=True)
+    return report
+
+
+def phase_shooting(device, card: str, pipe, carry):
+    """Phase 17 (e): the shooting PGD on phase 3's end-state models (the
+    lifted end states, the flagship's reference window, |u| <= 2, N = Np
+    = HORIZON, the solver's default 200 steps) on the card, against the
+    CPU on its first PGD_CPU_BATCH scenarios, in float32 and float64."""
+    import torch
+    from koopmanx_torch.control.shooting import solve_shooting_pgd
+    from koopmanx_torch.run import ref_fn_for
+    from koopmanx_torch.types import LinearModel
+
+    with torch.inference_mode():
+        z0 = pipe.dictionary(carry.x)
+    r = ref_fn_for(pipe.config, pipe.params.q_block.shape[-1],
+                   pipe.device, pipe.dictionary)(0)
+    report = {"batch": BATCH, "cpu_batch": PGD_CPU_BATCH, "card": card}
+    for dtype in ("float32", "float64"):
+        dt = getattr(torch, dtype)
+        model = LinearModel(*(t.to(dt) for t in carry.model))
+        k = PGD_CPU_BATCH
+        args = lambda m, dev, b=BATCH: (
+            LinearModel(*(t[:b].to(dev) for t in m)), z0[:b].to(dev, dt),
+            r.to(dev, dt), HORIZON, HORIZON, -2.0, 2.0)
+        out, wall = timed(lambda: solve_shooting_pgd(*args(model, device)))
+        cpu = solve_shooting_pgd(*args(model, "cpu", k))
+        gap = float((out[:k].cpu() - cpu).abs().max())
+        floor = 0.0
+        if gap > PGD_TOL[dtype]:
+            a_up = torch.nextafter(model.A, torch.full_like(model.A, 9.0))
+            nudged = solve_shooting_pgd(*args(model._replace(A=a_up), "cpu",
+                                              k))
+            floor = float((nudged - cpu).abs().max())
+        report[dtype] = {"gap_card_vs_cpu": gap, "floor_one_ulp_a": floor,
+                         "tol": PGD_TOL[dtype], "card_s": wall,
+                         "u_abs_max": float(out.abs().max())}
+        if not bool(torch.isfinite(out).all()):
+            fail(f"shooting {dtype}: non-finite")
+        if not gap <= max(PGD_TOL[dtype], 10.0 * floor):
+            fail(f"shooting {dtype}: card vs CPU {report[dtype]}")
+    print("phase 17 shooting " + json.dumps(report), flush=True)
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -2436,7 +2921,21 @@ def main() -> int:
         k: serving[k] for k in serving
         if k.startswith("latency") or k == "fused_loop_ms_per_step"},
         "card": card}), flush=True)
-    print(f"phase 16: {time.perf_counter() - t16:.1f} s; phases 1-16: "
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # ---- 17. the other control laws: the LMI terminal, LQR, the
+    # local-linearization baseline, the spectral drift, the shooting PGD
+    t17 = time.perf_counter()
+    lmi_counts, lmi = phase_lmi(device, card)
+    lqr = phase_lqr(device, card)
+    local_counts, local = phase_local_linear(device, card)
+    drift = phase_spectral_drift(device, card)
+    shooting = phase_shooting(device, card, run_kernel.pipe, carry_k)
+    print(json.dumps({"control_laws": {
+        "lmi": {k: lmi[k] for k in ("pallas", "xla", "early_f64", "step")},
+        "lqr": lqr, "local_linear": local, "spectral_drift": drift,
+        "shooting": shooting}, "card": card}), flush=True)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s; phases 1-17: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
@@ -2451,7 +2950,10 @@ def main() -> int:
            for name, c in estimator_counts.items()},
         **{f"{name} bench (phase 15)": c["box_admm"]
            for name, c in revise2_counts.items()},
-        **serving_counts}
+        **serving_counts,
+        "revise2_duffing, LMI terminal (phase 17)": lmi_counts["box_admm"],
+        "LQR (phase 17)": lqr["launches"],
+        "local-linear (phase 17)": local_counts["box_admm"]}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

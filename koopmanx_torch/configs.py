@@ -46,7 +46,7 @@ class LiftConfig:
 
 @dataclasses.dataclass
 class MPCConfig:
-    controller: str = "mpc"
+    controller: str = "mpc"  # mpc | lqr (the closed-loop LQR law, no QP)
     horizon: int = 10
     q_weight: float = 100.0
     r_weight: float = 1e-4
@@ -61,7 +61,7 @@ class MPCConfig:
     track_lifted: bool = False
     cy_index: Optional[int] = None
     terminal_synthesis: bool = False
-    terminal_mode: str = "dare"  # 'lmi' (ROADMAP item 14b) raises
+    terminal_mode: str = "dare"  # dare | lmi (the Revise_2 LMI, control/lmi.py)
     state_bounds: Optional[Tuple[float, float]] = None
     markov: str = "dag"  # prediction-matrix build: dag | scan
     qp_iters: int = 60

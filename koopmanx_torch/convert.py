@@ -192,8 +192,9 @@ def controller_state_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
     ``"model"`` (A, B, C), ``"rls"`` (the estimator's fields, as
     ``"rls0"`` above), ``"u_prev"``, ``"warm_x"``, ``"warm_y"`` (None or
     absent without the 'full' warm start), ``"z_prev"``, ``"x_prev"``,
-    ``"have_prev"``, ``"res_ema"`` and ``"cert"`` ((P, K, gamma), or None
-    or absent without terminal synthesis). A fleet's arrays carry the
+    ``"have_prev"``, ``"res_ema"`` and ``"cert"`` ((P, K, gamma) of the
+    DARE or LMI terminal, or None or absent without terminal synthesis,
+    as in LQR mode). A fleet's arrays carry the
     plant axis first; a single controller's (``have_prev`` a scalar) get
     a plant axis of one. A carried KKT inverse (``"kkt_inv"``) is ROADMAP
     L3 and refused."""

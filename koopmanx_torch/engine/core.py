@@ -2,16 +2,20 @@
 
 The port has ``make_control_solver`` (:383-729) for the MPC controller:
 lifted-space tracking (:416-422); the du formulation (:423-425); the
-per-step DARE terminal synthesis with its certificate guard (:429-493,
-``terminal_mode='dare'``) and ``initial_cert`` (:364-380); the
+per-step terminal synthesis with its certificate guard (:429-493), by
+the DARE (``terminal_mode='dare'``) or by the Revise_2 LMI
+(``terminal_mode='lmi'``, :438-451, ``control/lmi.py``), and
+``initial_cert`` (:364-380); the
 applied-input window folded into the first decision block's bounds
 (``applied_bounds='box'``, :519-584) or as explicit rows
 (``applied_bounds='rows'``, :519-539); the state-box rows through F1/F2
 (``state_bounds``, :540-556), which send the step to the
 general-inequality ADMM (``solve_qp``, :668-676); on the box path the
 output-space (low-rank) KKT inverse for py < m on the plain route
-(:596-666); the dither probe and the du accumulator (:686-704);
-``dual_dim`` (:854-864); every branch of ``make_estimator_update``
+(:596-666); the dither probe and the du accumulator (:686-704); the
+closed-loop LQR controller (``controller='lqr'``, :732-845, no QP and no
+kernel); ``dual_dim`` (:854-864); the drift norms (``_matnorm``, :312-315);
+every branch of ``make_estimator_update``
 (:897-984: ``rls``, ``rls_chol``, ``rls_sqrt``, the windowed Woodbury lane
 and refit from the ring buffers, ``storage``) with the model guard
 (:988-1008) applied per scenario; and ``change_reset`` (:1015-1047). Every function takes a
@@ -45,6 +49,8 @@ from ..control.qp import (
     make_box_qp_solver,
     solve_qp,
 )
+from ..control.dare import dlqr_gain, solve_dare_doubling
+from ..control.lmi import solve_terminal_lmi
 from ..control.terminal import lyapunov_value, synthesize_terminal
 from ..edmd.rls import (
     gram_rls_model,
@@ -142,9 +148,9 @@ class EngineConfig:
     f_clamp: float = 1e5
     model_guard: float = 3.0
     terminal_synthesis: bool = False  # per-step terminal synthesis (Revise_2)
-    terminal_mode: str = "dare"  # 'dare'; 'lmi' is ROADMAP item 14b
+    terminal_mode: str = "dare"  # 'dare' | 'lmi' (the Revise_2 LMI)
     state_bounds: bool = False
-    drift_norm: str = "fro"
+    drift_norm: str = "fro"  # 'spectral'; any other kind is Frobenius
 
     @property
     def qp_config(self) -> ADMMConfig:
@@ -163,20 +169,17 @@ UPDATE_MODES = ("rls", "rls_chol", "rls_sqrt", "windowed", "storage", "off")
 def check_supported(cfg: EngineConfig) -> None:
     """Refuse the options whose paths the port has not reached yet."""
     todo = [
-        (cfg.controller != "mpc", "controller='lqr'", "item 15"),
-        (cfg.terminal_synthesis and cfg.terminal_mode == "lmi",
-         "terminal_mode='lmi' (the LMI terminal)", "item 14b"),
         (cfg.qp_kkt_refine > 0, "qp_kkt_refine (carried KKT inverse)",
          "L3"),
         (cfg.qp_kkt_bf16, "qp_kkt_bf16", "L3"),
-        (cfg.drift_norm != "fro", f"drift_norm={cfg.drift_norm!r}",
-         "item 17"),
     ]
     for bad, what, item in todo:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP queue A, {item})"
             )
+    if cfg.controller not in ("mpc", "lqr"):
+        raise ValueError(f"unknown controller {cfg.controller!r}")
     if cfg.terminal_mode not in ("dare", "lmi"):
         raise ValueError(f"unknown terminal_mode {cfg.terminal_mode!r}")
     if cfg.integrator not in ("rk4", "rk4_matlab"):
@@ -213,6 +216,20 @@ def _spectral_radius_estimate(a: Tensor, iters: int = 12) -> Tensor:
         nrm = torch.linalg.vector_norm(av, dim=-1)
         v = av / torch.clamp(nrm, min=1e-30)[..., None]
     return nrm
+
+
+def _matnorm(d: Tensor, kind: str) -> Tensor:
+    """Per scenario: the largest singular value of ``d`` for
+    ``kind='spectral'``, else its Frobenius norm (``core.py:312-315``:
+    any other kind is Frobenius); NaN for a matrix with a non-finite
+    entry, as ``jnp.linalg.norm``, which the SVD never sees."""
+    flat = d.flatten(-2)
+    if kind != "spectral":
+        return torch.linalg.vector_norm(flat, dim=-1)
+    finite = torch.isfinite(flat).all(-1)
+    norm = torch.linalg.matrix_norm(
+        torch.where(finite[..., None, None], d, 0.0), ord=2)
+    return torch.where(finite, norm, float("nan"))
 
 
 def _select(pred: Tensor, new, old):
@@ -334,6 +351,8 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
     (or the general-inequality ADMM when rows are added), projection, the
     du accumulator (``Tank_System.m:192``) and the warm shift."""
     check_supported(cfg)
+    if cfg.controller == "lqr":
+        return _make_lqr_solver(cfg, ref_fn, m)
     if cfg.terminal_synthesis and dictionary is None:
         raise ValueError("terminal synthesis anchors its certificate at "
                          "psi(x - r): pass the engine's dictionary")
@@ -343,7 +362,10 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
 
     def synthesis(params: MPCParams, model: LinearModel, cert, x: Tensor,
                   step: Step):
-        """The DARE certificate of each scenario's (online-updated) model,
+        """The certificate of each scenario's (online-updated) model, by
+        the DARE or, under ``terminal_mode='lmi'``, by the Revise_2 LMI
+        anchored at the lifted tracking error psi(x - r) with the
+        scenario's first input bound (``Revise_2/Koopman_update.m:331``),
         held per scenario against the previous one where it fails the
         guard: P, K and gamma finite, V at the anchor psi(x - r) >= 0 and
         gamma > 0 (``core.py:429-493``). Returns the held certificate, the
@@ -359,12 +381,18 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
                                    device=x.device)
             ref_full[..., :k] = r0[..., :k]
         ref_full = ref_full.expand(x.shape)
-        tc = synthesize_terminal(model, params.q_lift, params.r_block)
-        # dlqr gives u = -K z; the certificate holds the reference's u = K z
-        new = (tc.p, -tc.k, tc.gamma)
         psi = dictionary(x - ref_full)
-        v_anchor = lyapunov_value(tc.p, psi)
-        ok = _tree_finite(new) & (v_anchor >= 0) & (tc.gamma > 0)
+        if cfg.terminal_mode == "lmi":
+            res = solve_terminal_lmi(model, params.q_lift, params.r_block,
+                                     psi, u_max=params.u_max[..., 0])
+            new = (res.p, res.k, res.gamma)  # u = K z convention (ref :361)
+        else:
+            tc = synthesize_terminal(model, params.q_lift, params.r_block)
+            # dlqr gives u = -K z; the certificate holds the reference's
+            # u = K z
+            new = (tc.p, -tc.k, tc.gamma)
+        v_anchor = lyapunov_value(new[0], psi)
+        ok = _tree_finite(new) & (v_anchor >= 0) & (new[2] > 0)
         held = tuple(torch.where(ok.reshape(ok.shape + (1,) * (a.dim() - 1)),
                                  a, b) for a, b in zip(new, cert))
         if cfg.track_lifted:
@@ -479,15 +507,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             params.u_min, params.u_max,
         )
         if cfg.dither > 0.0:
-            # deterministic multi-sine probe for persistent excitation
-            if isinstance(step, Tensor):
-                t = step.to(z.dtype)[:, None]
-            else:
-                t = torch.tensor(float(step), dtype=z.dtype, device=z.device)
-            probe = cfg.dither * (torch.sin(0.37 * t)
-                                  + 0.5 * torch.sin(1.13 * t + 1.0))
-            first_move = torch.clamp(first_move + probe, params.u_min,
-                                     params.u_max)
+            first_move = _dithered(cfg, params, first_move, step)
         if cfg.delta_u:
             u_applied = u_prev + first_move  # U0 += dU (Tank_System.m:192)
             if params.applied_min is not None:
@@ -503,6 +523,109 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
         )
         return ControlDecision(u_applied=u_applied, warm_x=warm_next,
                                sol=sol, r_window=r_window, **revise2)
+
+    return control_solve
+
+
+def _dithered(cfg: EngineConfig, params: MPCParams, u: Tensor,
+              step: Step) -> Tensor:
+    """``u`` plus the deterministic multi-sine probe of persistent
+    excitation, clipped to the box; per plant for per-plant steps."""
+    if isinstance(step, Tensor):
+        t = step.to(u.dtype)[:, None]
+    else:
+        t = torch.tensor(float(step), dtype=u.dtype, device=u.device)
+    probe = cfg.dither * (torch.sin(0.37 * t)
+                          + 0.5 * torch.sin(1.13 * t + 1.0))
+    return torch.clamp(u + probe, params.u_min, params.u_max)
+
+
+def _make_lqr_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
+                     m: int):
+    """The closed-loop LQR controller (``controller='lqr'``,
+    ``core.py:732-845``), the runnable counterpart of the reference's
+    dead LQR flag (``duffing.py:682``; gain ``dlqr(A, B, Q, R)`` at
+    ``:669``, applied at ``:863-864`` as ``u = -K_gain @ xlift``). Per
+    step, on each scenario's current model:
+
+      K = dlqr(A, B, Q_dare, R)          (doubling DARE)
+      (z_ss, u_ss) = argmin ||(A - I) z + B u||^2 + ||G z - r||^2
+      u = clip(u_ss - K (z - z_ss), u_min, u_max)
+
+    with G the tracked output map (C, or Cy C; the identity under lifted
+    tracking, where z_ss is the encoded reference and u_ss the least
+    squares of B u = (I - A) z_ss), both through ``spd_inverse`` with a
+    1e-8 ridge. Q_dare is ``q_lift`` when given, else the output weight
+    pulled back through G, plus 1e-9 tr(Q) I for detectability. A
+    non-finite law applies 0; the dither as in the MPC path. No QP and no
+    kernel: the solution is zeros shaped as the warm starts, so the loop,
+    ``run_batch`` and the serving controllers run it unchanged."""
+    if cfg.delta_u or cfg.state_bounds or cfg.terminal_synthesis:
+        raise ValueError(
+            "controller='lqr' supports the plain tracking formulation only "
+            "(no delta_u, state_bounds, or terminal_synthesis — those are "
+            "MPC-path features; the reference's LQR flag had none of them)")
+    horizon = cfg.horizon
+
+    def control_solve(params: MPCParams, model: LinearModel, z: Tensor,
+                      u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: Step,
+                      cert: Any = (), x: Optional[Tensor] = None
+                      ) -> ControlDecision:
+        step = host_to(step, z.device)
+        a, b = model.A, model.B
+        nlift, batch = a.shape[-1], z.shape[:-1]
+        kw = dict(dtype=z.dtype, device=z.device)
+        eye_n = torch.eye(nlift, **kw)
+        if cfg.track_lifted:
+            g = eye_n
+        else:
+            g = model.C if params.cy is None else params.cy @ model.C
+        q_dare = (params.q_lift if params.q_lift is not None
+                  else g.transpose(-1, -2) @ params.q_block @ g)
+        # the pulled-back Q has rank py: the doubling DARE needs
+        # detectability of (A, Q^1/2)
+        tr_q = params.q_block.diagonal(dim1=-2, dim2=-1).sum(-1)
+        q_dare = q_dare + (1e-9 * tr_q)[..., None, None] * eye_n
+        p = solve_dare_doubling(a, b, q_dare, params.r_block)
+        k = dlqr_gain(a, b, q_dare, params.r_block, p)  # u = -K z
+
+        r_window = ref_fn(step)  # (horizon, py), or (B, horizon, py)
+        r0 = r_window[..., 0, :].expand(batch + r_window.shape[-1:])
+        mv = lambda mat, v: (mat @ v.unsqueeze(-1)).squeeze(-1)
+        bt = b.transpose(-1, -2)
+        if cfg.track_lifted:
+            z_ss = r0
+            bb = bt @ b + 1e-8 * torch.eye(m, **kw)
+            u_ss = mv(spd_inverse(bb), mv(bt, mv(eye_n - a, z_ss)))
+        else:
+            g = g.expand(batch + g.shape[-2:])
+            mmat = torch.cat([
+                torch.cat([a - eye_n, b], dim=-1),
+                torch.cat([g, torch.zeros(g.shape[:-1] + (m,), **kw)],
+                          dim=-1)], dim=-2)
+            rhs = torch.cat([torch.zeros(batch + (nlift,), **kw), r0], -1)
+            mt = mmat.transpose(-1, -2)
+            mtm = mt @ mmat + 1e-8 * torch.eye(nlift + m, **kw)
+            w = mv(spd_inverse(mtm), mv(mt, rhs))
+            z_ss, u_ss = w[..., :nlift], w[..., nlift:]
+        # a transiently non-stabilizable estimate gives NaN (P, K): apply 0
+        u_raw = u_ss - mv(k, z - z_ss)
+        u_applied = torch.clamp(
+            torch.nan_to_num(u_raw, nan=0.0, posinf=0.0, neginf=0.0),
+            params.u_min, params.u_max)
+        if cfg.dither > 0.0:
+            u_applied = _dithered(cfg, params, u_applied, step)
+        zeros_x = torch.zeros(batch + (horizon * m,), **kw)
+        sol = QPSolution(
+            x=zeros_x, z=zeros_x,
+            # warm_y is () unless qp_warm_start='full'
+            y=(torch.zeros(batch + (0,), **kw) if isinstance(warm_y, tuple)
+               else torch.zeros_like(warm_y)),
+            primal_res=torch.zeros(batch, **kw),
+            dual_res=torch.zeros(batch, **kw), iterations=0)
+        return ControlDecision(u_applied=u_applied,
+                               warm_x=torch.zeros_like(warm_x), sol=sol,
+                               r_window=r_window, cert=cert)
 
     return control_solve
 

@@ -24,6 +24,7 @@ from ..types import LinearModel
 from .core import (
     EngineConfig,
     MPCParams,
+    _matnorm,
     change_reset,
     dual_dim,
     initial_cert,
@@ -165,10 +166,10 @@ def make_closed_loop(system: System, dictionary: Dictionary,
         )
         rls, res_ema = change_reset(cfg, rls, carry.res_ema, residual)
 
-        drift = [
-            torch.linalg.vector_norm((new - old).flatten(1), dim=-1)
-            for new, old in zip(new_model, model)
-        ]
+        # the model's drift per step: Frobenius norms, or the largest
+        # singular values under drift_norm='spectral' (loop.py:163-185)
+        drift = [_matnorm(new - old, cfg.drift_norm)
+                 for new, old in zip(new_model, model)]
         new_carry = LoopCarry(
             x=x_next,
             u_applied=u_applied,

@@ -1,1 +1,2 @@
 """lifts (see the package docstring)."""
+from .base import constant_augmented

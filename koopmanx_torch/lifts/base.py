@@ -1,7 +1,7 @@
 """Lifting dictionaries psi: R^n -> R^N (counterpart of
-``koopmanx/lifts/base.py``: the ``Dictionary`` wrapper, ``state_augmented``
-and ``zero_offset`` at :100-129, ``normalized`` and ``fit_normalizer`` at
-:132-162).
+``koopmanx/lifts/base.py``: the ``Dictionary`` wrapper,
+``constant_augmented`` at :83-96, ``state_augmented`` and ``zero_offset``
+at :100-129, ``normalized`` and ``fit_normalizer`` at :132-162).
 
 Where JAX held a pure apply function and a parameter pytree, the port
 holds an ``nn.Module`` encoder and the normalizer as buffers, so ``.to()``
@@ -61,6 +61,21 @@ class ZeroOffset(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         zero = torch.zeros(x.shape[-1:], dtype=x.dtype, device=x.device)
         return self.inner(x) - self.inner(zero)
+
+
+class ConstantAugmented(nn.Module):
+    """[x; 1]."""
+
+    def forward(self, x: Tensor) -> Tensor:
+        one = torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+        return torch.cat([x, one], dim=-1)
+
+
+def constant_augmented(n: int) -> Dictionary:
+    """psi(x) = [x; 1], the affine Koopman lift: an affine model
+    x+ = A x + B u + d is exactly the linear model [[A, d], [0, 1]] on it
+    (the local-linearization baseline, :mod:`..engine.local_linear`)."""
+    return Dictionary(ConstantAugmented(), nlift=n + 1, n=n)
 
 
 def zero_offset(inner: Dictionary) -> Dictionary:

@@ -34,9 +34,11 @@ from .edmd.rls import (
 from .edmd.windowed import window_init, window_prefill
 from .engine import ref as refgen
 from .engine.core import check_supported
+from .engine.local_linear import make_local_linear_loop
 from .engine.loop import EngineConfig, MPCParams, make_closed_loop, run_batch
 from .lifts.base import (
     Dictionary,
+    constant_augmented,
     fit_normalizer,
     normalized,
     state_augmented,
@@ -382,6 +384,22 @@ def build_pipeline(cfg: C.RunConfig, x_init=None,
         x_init=x_init.to(dev),
         device=dev,
     )
+
+
+def build_local_linear(cfg: C.RunConfig, device: DeviceLike = None):
+    """The local-linearization baseline of a run config
+    (:mod:`.engine.local_linear`): ``(closed_loop, params)`` on ``device``
+    (None means CUDA), with the config's MPC weights, box and reference on
+    the affine lift psi(x) = [x; 1]. No data, lift or estimator: the model
+    is the plant's Jacobian every step."""
+    dev = resolve_device(device)
+    system = get_system(cfg.system)
+    dictionary = constant_augmented(system.n)
+    params = mpc_params(cfg, system, dictionary.nlift, dev)
+    loop = make_local_linear_loop(
+        system, engine_config(cfg),
+        ref_fn_for(cfg, params.q_block.shape[0], dev, dictionary))
+    return loop, params
 
 
 def replicate(tree, batch: int):

@@ -71,13 +71,20 @@ VANDERPOL = System(
 )
 
 
+# a 0-dim host zero: a scalar operand on any device and dtype
+_ZERO = torch.tensor(0.0)
+
+
 def _clamp_nonneg(x: Tensor) -> Tensor:
-    """x >= 0, NaN kept (``jnp.maximum(x, 0.0)``; Tank_System.m:40,45,211)."""
-    return torch.clamp(x, min=0.0)
+    """x >= 0, NaN kept (``jnp.maximum(x, 0.0)``; Tank_System.m:40,45,211).
+    ``torch.maximum``, not ``clamp``: at a tie its derivative is 0.5, as
+    ``jnp.maximum``'s, so the Jacobians of ``systems.linearize`` agree
+    with the JAX package's on the kink too."""
+    return torch.maximum(x, _ZERO)
 
 
 def _sqrt_level(x: Tensor) -> Tensor:
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return torch.sqrt(_clamp_nonneg(x))
 
 
 class TankParams(NamedTuple):

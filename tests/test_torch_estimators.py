@@ -384,19 +384,24 @@ def test_convert_refuses_an_unknown_estimator_state(flagship_arrays):
 
 
 @pytest.mark.parametrize("change,match", [
-    (lambda c: setattr(c.mpc, "controller", "lqr"), "item 15"),
+    (lambda c: setattr(c.mpc, "controller", "lqr"), None),
     (lambda c: (setattr(c.mpc, "terminal_synthesis", True),
-                setattr(c.mpc, "terminal_mode", "lmi")), "item 14b"),
+                setattr(c.mpc, "terminal_mode", "lmi")), None),
     (lambda c: setattr(c.mpc, "qp_kkt_refine", 2), "L3"),
 ], ids=["lqr", "terminal_synthesis", "qp_kkt_refine"])
 def test_later_items_stay_refused(change, match):
-    """The LQR controller, terminal synthesis in its LMI mode and the
-    carried KKT inverse are not ported yet: ``engine_config`` raises
-    naming their ROADMAP item, on the VDP preset as on any other. (The
-    DARE synthesis and the warm starts from the batch Grams are ported:
-    tests/test_torch_revise2.py, tests/test_torch_dare.py.)"""
+    """The carried KKT inverse is not ported yet: ``engine_config`` raises
+    naming its ROADMAP item (L3), on the VDP preset as on any other. The
+    LQR controller (item 15) and terminal synthesis in its LMI mode (item
+    14b) are ported: on the same preset their engine configs build
+    (tests/test_torch_lqr.py, tests/test_torch_lmi.py)."""
     cfg = TC.vdp_lifted_preset()
     change(cfg)
+    if match is None:
+        ecfg = engine_config(cfg)
+        assert (ecfg.controller, ecfg.terminal_mode) == (
+            cfg.mpc.controller, cfg.mpc.terminal_mode)
+        return
     with pytest.raises(NotImplementedError, match=match):
         engine_config(cfg)
 

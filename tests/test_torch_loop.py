@@ -224,8 +224,11 @@ def test_build_pipeline_runs_the_flagship_loop_small_on_cpu():
 
 def test_unported_options_raise():
     """The options of later slices raise, naming their ROADMAP item: the
-    LMI terminal (item 14b), the LQR controller (item 15), the polynomial
-    and identity lifts (L7). The Woodbury lane, a compressed ring, k-means
+    polynomial and identity lifts (L7). The LMI terminal (item 14b) and
+    the LQR controller (item 15) are ported (tests/test_torch_lmi.py,
+    tests/test_torch_lqr.py): on the same tank config they build and run
+    two steps with finite inputs in the box, neither launching the
+    kernel on CPU tensors. The Woodbury lane, a compressed ring, k-means
     centers and Fourier lifts (item 11) are ported
     (tests/test_torch_rbf128.py), and so are the explicit applied-window
     rows and the state box (item 12, tests/test_torch_general_qp.py), the
@@ -233,14 +236,28 @@ def test_unported_options_raise():
     tests/test_torch_estimators.py, tests/test_torch_vdp.py), and the DARE
     terminal synthesis (item 14a, tests/test_torch_revise2.py)."""
     cases = [({"terminal_synthesis": True, "terminal_mode": "lmi"}, {},
-              "item 14b"),
+              None),
              ({}, {"kind": "hermite"}, "L7"),
              ({}, {"kind": "identity"}, "L7"),
-             ({"controller": "lqr"}, {}, "item 15")]
+             ({"controller": "lqr"}, {}, None)]
     for mpc, lift, item in cases:
         cfg = TC.tank_bench_config(steps=2)
         cfg.data = dataclasses.replace(cfg.data, n_step=5, n_traj=5)
         cfg.mpc = dataclasses.replace(cfg.mpc, **mpc)
         cfg.lift = dataclasses.replace(cfg.lift, **lift)
-        with pytest.raises(NotImplementedError, match=item):
-            t_build_pipeline(cfg, device="cpu")
+        if item is not None:
+            with pytest.raises(NotImplementedError, match=item):
+                t_build_pipeline(cfg, device="cpu")
+            continue
+        if mpc.get("controller") == "lqr":
+            # the LQR law has no du formulation (a ValueError, as in JAX)
+            cfg.mpc = dataclasses.replace(cfg.mpc, delta_u=False)
+        pipe = t_build_pipeline(cfg, device="cpu")
+        launches = box_admm.launches
+        x0 = torch.full((2, 2), 0.5)
+        _, log = t_run_batch(pipe.closed_loop, replicate(pipe.params, 2),
+                             x0, replicate(pipe.model0, 2),
+                             replicate(pipe.rls0, 2))
+        assert torch.isfinite(log.u).all() and log.u.shape == (2, 2, 1)
+        assert float(log.u.abs().max()) <= 8.0
+        assert box_admm.launches == launches

@@ -4,7 +4,7 @@ monitor series in the closed loop (``revise2_duffing``: output tracking,
 the SM RLS warm-started from the batch Grams; ``revise2_vdp``: lifted
 tracking with the full P injected), the one-state ``toy1d`` loop, the
 guard on a model with no certificate, one control solve under synthesis
-with a held certificate, and the refused LMI terminal. One JAX pipeline
+with a held certificate, and the LMI terminal building. One JAX pipeline
 (30x30 data) is carried across with ``convert.pipeline_from_numpy``;
 float64 on the CPU, B = 4 scenarios from numpy with a seed, the kernel
 route (its plain version on CPU tensors)."""
@@ -31,6 +31,7 @@ from koopmanx_torch.convert import pipeline_from_numpy  # noqa: E402
 from koopmanx_torch.engine import core as tcore  # noqa: E402
 from koopmanx_torch.engine.loop import REVISE2_FIELDS  # noqa: E402
 from koopmanx_torch.engine.loop import run_batch as t_run_batch  # noqa: E402
+from koopmanx_torch.lifts.base import constant_augmented  # noqa: E402
 from koopmanx_torch.ops.box_admm import box_admm  # noqa: E402
 from koopmanx_torch.run import (  # noqa: E402
     engine_config,
@@ -270,17 +271,17 @@ def test_synthesis_control_solve_matches_jax(name):
 
 
 def test_lmi_terminal_stays_refused():
-    """``terminal_mode='lmi'`` under synthesis raises, naming ROADMAP item
-    14b, from ``engine_config`` and from the engine itself; an unknown
-    mode is a ValueError. The DARE mode builds."""
+    """``terminal_mode='lmi'`` under synthesis (ROADMAP item 14b) is ported:
+    ``engine_config`` and the engine build it, and its loop matches JAX
+    (tests/test_torch_lmi.py); an unknown mode is a ValueError, as it
+    was. The DARE mode builds."""
     cfg = TC.revise2_duffing_preset()
     engine_config(cfg)
     cfg.mpc.terminal_mode = "lmi"
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        engine_config(cfg)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        tcore.make_control_solver(
-            tcore.EngineConfig(terminal_synthesis=True, terminal_mode="lmi"),
-            lambda step: None, 1)
+    assert engine_config(cfg).terminal_mode == "lmi"
+    solve = tcore.make_control_solver(
+        tcore.EngineConfig(terminal_synthesis=True, terminal_mode="lmi"),
+        lambda step: None, 1, constant_augmented(2))
+    assert callable(solve)
     with pytest.raises(ValueError, match="terminal_mode"):
         tcore.check_supported(tcore.EngineConfig(terminal_mode="sdp"))
