@@ -230,12 +230,35 @@ Phases, each of which fails the run on error:
    synchronizations a step; (e) ``control.shooting.solve_shooting_pgd``
    on phase 3's end-state models, the card against the CPU in float32
    and float64.
+18. KMAE training, counts zeroed before each run and read after: (a)
+   ``cli train --system duffing`` at its defaults on the card (100 x 100
+   snapshots, encoder 2-100-100-100-8, decoder back, horizon 6, 20
+   epochs of 36 steps, rec-only past epoch 5; 0 launches): every epoch's
+   loss finite, the loss at epoch 5 below epoch 0's, the last epoch's
+   l_rec below epoch 0's, the checkpoint reloading to the trained state,
+   the exported encoder loading as trained; prints the wall, ms per
+   optimizer step, and one step's device operations, host
+   synchronizations and idle share; (b) 5 float64 steps from one state on
+   the same minibatches, the card against the CPU, within 1e-9 of each
+   leaf's largest entry (or ten times the CPU's own spread with the
+   snapshot rows summed in other orders, where larger); (c)
+   ``duffing_selftrained`` with the trained encoder for 200 steps (cut from
+   10000) on both routes: 200 launches, then 0, finite, |u| <= 2, quality
+   within 1 % / 5 %, the float64 routes
+   within 1e-9 (or ten times the plain route's one-ulp floor) at 256
+   scenarios, its steady-state error beside the shipped encoder's; (d)
+   the flagship for 60 steps on the kernel route with ``lift.kind``
+   hermite, monomial and identity and ``mpc.markov`` doubling and assoc:
+   60 launches each, finite, |u| <= 2; each Markov build's F1 and F2 on
+   phase 3's end-state models within 1e-5 (float32; or twice the larger
+   float32 error of the two builds against float64, where larger) and
+   1e-12 (float64) of 'dag''s.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
 line, a serving JSON line (phase 16's latencies), a control-laws JSON
-line (phase 17), the card line
+line (phase 17), a training JSON line (phase 18), the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -401,6 +424,34 @@ PGD_TOL = {"float32": 1e-4, "float64": 1e-9}
 # scenarios (they do not mix: the card's values there are the whole
 # call's), its autograd on the host being the phase's slowest part
 PGD_CPU_BATCH = 1024
+# phase 18: KMAE training at the reference's width through the CLI's
+# defaults (100 x 100 snapshots, 2-100-100-100-8 and back, horizon 6, 20
+# epochs with rec-only past epoch 5, 256 windows a batch: 36 steps an
+# epoch); (b) the card against the CPU in float64 over TRAIN_CHECK_STEPS
+# steps (steps 3 and 4 rec-only), within TRAIN_F64_RTOL of each leaf's
+# largest entry, or ten times the CPU's own spread when the snapshot rows
+# are summed in other orders, where that is larger: the same arithmetic
+# but cuBLAS's and the CPU's summation orders over the 10,000 rows (a
+# first H100 run: 5.2e-9 on one leaf, 8.4e-11 in the losses); (c)
+# duffing_selftrained with the phase's encoder, cut from the preset's
+# 10000 steps to SELFTRAINED_STEPS as phase 8 is, on both routes, then the
+# same loop on the shipped encoder; its float64 routes within
+# SELFTRAINED_F64_TOL (or ten times the plain route's one-ulp-of-x0 floor,
+# where that is larger) at EARLY_BATCH; (d) the flagship with each L7
+# option over L7_STEPS, and each Markov build's F1 and F2 on phase 3's
+# end-state models within MARKOV_RTOL of 'dag''s (relative to each
+# scenario's largest entry; in float32, or twice 'dag''s own float32
+# error, where larger: see markov_check)
+TRAIN_ARGV = ["train", "--system", "duffing"]
+TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH, TRAIN_HIDDEN = 20, 36, 100
+TRAIN_TIMED_STEPS = 20
+TRAIN_CHECK_STEPS, TRAIN_F64_RTOL = 5, 1e-9
+SELFTRAINED_STEPS, SELFTRAINED_F64_TOL = 200, 1e-9
+L7_STEPS = 60
+L7_RUNS = (("lift.kind", "hermite"), ("lift.kind", "monomial"),
+           ("lift.kind", "identity"), ("mpc.markov", "doubling"),
+           ("mpc.markov", "assoc"))
+MARKOV_RTOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 def fail(msg: str) -> None:
@@ -1666,10 +1717,11 @@ def phase_general(device, card: str):
          **report, "card": card}), flush=True)
 
 
-def early_f64_gate(make_cfg, device, name: str, full_floor: bool = False):
+def early_f64_gate(make_cfg, device, name: str, full_floor: bool = False,
+                   tol: float = EARLY_TOL):
     """Kernel vs plain route of ``make_cfg(backend, steps)`` over
     LOOP_EARLY_STEPS float64 steps at EARLY_BATCH scenarios: each scenario
-    and step within EARLY_TOL, or within ten times the plain route's own
+    and step within ``tol``, or within ten times the plain route's own
     divergence from one ulp of x0 (up, then down) in that scenario up to
     that step where that is larger. ``full_floor`` (phase 15) widens the
     floor to every round-off realization of the plain route it tries: one
@@ -1709,17 +1761,17 @@ def early_f64_gate(make_cfg, device, name: str, full_floor: bool = False):
     dx = diff(logs["pallas"])
     stack = lambda keys: torch.stack([floors[k] for k in keys]).amax(0)
     floor = stack(floors).cummax(dim=1).values
-    bound = torch.clamp(10.0 * floor, min=EARLY_TOL)
-    tight = bound == EARLY_TOL
+    bound = torch.clamp(10.0 * floor, min=tol)
+    tight = bound == tol
     report = {"batch": EARLY_BATCH, "steps": LOOP_EARLY_STEPS,
               "dx_f64": float(dx.max()), "floor_f64": float(floor.max()),
-              "tol": EARLY_TOL, "share_held_at_tol": float(
+              "tol": tol, "share_held_at_tol": float(
                   tight.double().mean()),
               "dx_f64_where_held_at_tol": float(dx[tight].max())
               if bool(tight.any()) else None}
     if full_floor:
         x0_floor = stack(["x0 +9.0", "x0 -9.0"]).cummax(dim=1).values
-        x0_bound = torch.clamp(10.0 * x0_floor, min=EARLY_TOL)
+        x0_bound = torch.clamp(10.0 * x0_floor, min=tol)
         report.update({
             "floor_f64_by_realization": {k: float(v.max())
                                          for k, v in floors.items()},
@@ -1732,7 +1784,7 @@ def early_f64_gate(make_cfg, device, name: str, full_floor: bool = False):
             "worst_ratio_to_bound": float((dx / bound).max())})
     if not bool((dx <= bound).all()):
         fail(f"{name}: float64 kernel and plain loops differ by more than "
-             f"max({EARLY_TOL}, 10 x the round-off floor): {report}")
+             f"max({tol}, 10 x the round-off floor): {report}")
     return report
 
 
@@ -2748,6 +2800,349 @@ def phase_shooting(device, card: str, pipe, carry):
     return report
 
 
+def training_inputs(device, dtype):
+    """The CLI's training data (duffing, seed 0, 100 x 100) and its
+    windows on ``device`` in ``dtype``."""
+    import torch
+    from koopmanx_torch.systems.data import collect
+    from koopmanx_torch.systems.library import get_system
+    from koopmanx_torch.train.kmae import make_windows
+
+    data = collect(get_system("duffing"), torch.Generator().manual_seed(0),
+                   n_step=100, n_traj=100)
+    snaps = [t.to(device, dtype) for t in data]
+    return snaps, make_windows(*snaps, 100, 6)
+
+
+def train_through_cli(device, tmp: str):
+    """Phase 18 (a): ``cli train`` at its defaults on the card, with the
+    state and history that ``fit`` returns kept for the gates."""
+    import contextlib
+    import io
+
+    import torch
+    from koopmanx_torch import cli
+    from koopmanx_torch.convert import kmae_leaves, kmae_state_to_numpy
+    from koopmanx_torch.lifts.io import load_mat_mlp
+    from koopmanx_torch.train import trainer
+    from koopmanx_torch.train.kmae import KMAEConfig, init_state
+
+    prefix, ckpt = os.path.join(tmp, "duffing"), os.path.join(tmp, "kmae.npz")
+    real_fit, kept = trainer.fit, {}
+
+    def fit(*args, **kwargs):
+        t0 = time.perf_counter()
+        kept["state"], kept["history"] = real_fit(*args, **kwargs)
+        torch.cuda.synchronize()
+        kept["fit_s"] = time.perf_counter() - t0
+        return kept["state"], kept["history"]
+
+    out = io.StringIO()
+    trainer.fit = fit
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main([*TRAIN_ARGV, "--export", prefix, "--checkpoint", ckpt])
+    finally:
+        trainer.fit = real_fit
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    text = out.getvalue()
+    final = json.loads(text[text.index("\n{") + 1:])["final"]
+    state, history = kept["state"], kept["history"]
+    steps = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
+    report = {"argv": TRAIN_ARGV, "wall_s": wall, "fit_s": kept["fit_s"],
+              "optimizer_steps": steps,
+              "ms_per_step_in_fit": kept["fit_s"] / steps * 1e3,
+              "launches": counts,
+              "epochs": [{k: h[k] for k in ("loss", "l_rec", "l_lin",
+                                            "l_pred")} for h in history]}
+    if len(history) != TRAIN_EPOCHS or final != history[-1]:
+        fail(f"training: {len(history)} epochs, final {final}")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in ("loss", "l_rec", "l_lin",
+                                                  "l_pred")):
+            fail(f"training: non-finite epoch {h}")
+    if not history[5]["loss"] < history[0]["loss"]:
+        fail("training: the loss at epoch 5 is not below epoch 0's")
+    if not history[-1]["l_rec"] < history[0]["l_rec"]:
+        fail("training: the last epoch's l_rec is not below epoch 0's")
+    # the checkpoint reloads to the returned state, leaf for leaf
+    template = init_state(torch.Generator().manual_seed(1), KMAEConfig(),
+                          n=2, nlift=8, hidden=TRAIN_HIDDEN, device=device)
+    loaded, step = trainer.load_checkpoint(ckpt, template)
+    ours = kmae_leaves(kmae_state_to_numpy(state))
+    back = kmae_leaves(kmae_state_to_numpy(loaded))
+    if step != TRAIN_EPOCHS or any(
+            not (a == b).all() for a, b in zip(ours, back)):
+        fail(f"training: the checkpoint (step {step}) does not reload to "
+             "the trained state")
+    enc = load_mat_mlp(prefix + "_encoder.mat")
+    for (w, b), (w2, b2) in zip(state.params.encoder.params(), enc):
+        if not (torch.equal(w.detach().cpu(), w2)
+                and torch.equal(b.detach().cpu(), b2)):
+            fail("training: the exported encoder does not load as trained")
+    report["encoder_shapes"] = [list(w.shape) for w, _ in enc]
+    return state, prefix + "_encoder.mat", report
+
+
+def train_step_report(device, state):
+    """Steady ms per optimizer step over TRAIN_TIMED_STEPS steps on a copy
+    of the trained state, then ``step_report`` of one step (device
+    operations, host synchronizations, idle share)."""
+    import torch
+    from koopmanx_torch.convert import (
+        kmae_state_from_numpy,
+        kmae_state_to_numpy,
+    )
+    from koopmanx_torch.train.kmae import KMAEConfig, make_train_step
+
+    (x, y, u), (xw, uw) = training_inputs(device, torch.float32)
+    step, _ = make_train_step(KMAEConfig())
+    box = [kmae_state_from_numpy(kmae_state_to_numpy(state), device=device)]
+    idx = torch.arange(256, device=device)
+
+    def one():
+        box[0] = step(box[0], x, y, u, xw[idx], uw[idx])[0]
+
+    one()
+    ms = timed(lambda: [one() for _ in range(TRAIN_TIMED_STEPS)])[1] * 1e3
+    return {"ms_per_step_steady": ms / TRAIN_TIMED_STEPS,
+            "one_step": step_report(one)}
+
+
+def train_card_vs_cpu(device):
+    """Phase 18 (b): TRAIN_CHECK_STEPS float64 steps from one state on the
+    same minibatches at full width, the card against the CPU, each leaf
+    within TRAIN_F64_RTOL of its largest entry or within ten times the
+    CPU's own spread there when the 10,000 snapshot rows are summed in
+    two other orders, where that is larger: the fit's ridged 9 x 9 Gram
+    amplifies a reordered sum, and Adam's step, ~lr g / (|g| + eps),
+    amplifies it again where |g| is near eps (the biases, which start
+    at 0)."""
+    import numpy as np
+    import torch
+    from koopmanx_torch.convert import (
+        kmae_leaves,
+        kmae_state_from_numpy,
+        kmae_state_to_numpy,
+    )
+    from koopmanx_torch.train.kmae import (
+        KMAEConfig,
+        init_state,
+        make_train_step,
+    )
+
+    f64, cpu = torch.float64, torch.device("cpu")
+    start = kmae_state_to_numpy(init_state(
+        torch.Generator().manual_seed(2), KMAEConfig(), n=2, nlift=8,
+        hidden=100, dtype=f64, device="cpu"))
+    perm = torch.randperm(9400, generator=torch.Generator().manual_seed(3))
+    step, _ = make_train_step(KMAEConfig())
+
+    def run(dev, rows=None):
+        snaps, (xw, uw) = training_inputs(dev, f64)
+        if rows is not None:
+            snaps = [t[rows.to(dev)] for t in snaps]
+        state = kmae_state_from_numpy(start, device=dev, dtype=f64)
+        losses = []
+        for k in range(TRAIN_CHECK_STEPS):
+            idx = perm[k * 256:(k + 1) * 256].to(dev)
+            state, loss, _ = step(state, *snaps, xw[idx], uw[idx], k >= 3)
+            losses.append(float(loss))
+        return kmae_leaves(kmae_state_to_numpy(state)), losses
+
+    rel = lambda a, b: float(np.abs(a - b).max()
+                             / max(np.abs(b).max(), 1e-300))
+    card, card_losses = run(device)
+    cpu_leaves, cpu_losses = run(cpu)
+    others = [run(cpu, torch.randperm(
+        10000, generator=torch.Generator().manual_seed(10 + k)))
+        for k in range(2)]
+    worst, worst_ratio, bad = 0.0, 0.0, []
+    for i, (a, b) in enumerate(zip(card, cpu_leaves)):
+        if b.dtype == np.int32:
+            continue
+        spread = max(rel(o[0][i], b) for o in others)
+        bound = max(TRAIN_F64_RTOL, 10 * spread)
+        worst = max(worst, rel(a, b))
+        worst_ratio = max(worst_ratio, rel(a, b) / bound)
+        if not rel(a, b) <= bound:
+            bad.append((i, rel(a, b), spread))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                        cpu_losses))
+    loss_spread = max(abs(a - b) / abs(b) for o in others
+                      for a, b in zip(o[1], cpu_losses))
+    report = {"steps": TRAIN_CHECK_STEPS, "worst_leaf_rel": worst,
+              "worst_ratio_to_bound": worst_ratio,
+              "worst_loss_rel": loss_gap,
+              "cpu_reordered_loss_spread": loss_spread,
+              "cpu_reordered_leaf_spread": max(
+                  rel(o[0][i], b) for o in others
+                  for i, b in enumerate(cpu_leaves) if b.dtype != np.int32),
+              "rtol": TRAIN_F64_RTOL, "losses_card": card_losses}
+    if bad or not loss_gap <= max(TRAIN_F64_RTOL, 10 * loss_spread):
+        fail(f"training float64: the card and the CPU differ: {report}, "
+             f"leaves past their bound (index, gap, spread): {bad}")
+    return report
+
+
+def selftrained_config(weights: str, backend: str, steps: int):
+    from koopmanx_torch.configs import duffing_selftrained_preset
+
+    cfg = duffing_selftrained_preset()
+    cfg.steps, cfg.mpc.qp_backend = steps, backend
+    cfg.lift.weights_path = weights
+    return cfg
+
+
+def phase_selftrained(device, encoder: str, flagship_quality):
+    """Phase 18 (c): duffing_selftrained with the trained encoder, kernel
+    then plain route (SELFTRAINED_STEPS launches, then 0), their quality
+    gate and float64 gap, and the kernel route on the shipped encoder."""
+    from koopmanx_torch.run import resolve_weights_path
+
+    report, counts = {}, None
+    logs = {}
+    for backend in ("pallas", "xla"):
+        run = config_loop(selftrained_config(encoder, backend,
+                                             SELFTRAINED_STEPS), device)
+        if resolve_weights_path(run.pipe.config.lift.weights_path,
+                                "duffing") != encoder:
+            fail("duffing_selftrained does not load the trained encoder")
+        zero_counts()
+        (carry, log), wall = timed(run)
+        got = read_counts()
+        want = SELFTRAINED_STEPS if backend == "pallas" else 0
+        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+            fail(f"duffing_selftrained {backend} launched {got}")
+        check_loop(carry, log, f"duffing_selftrained {backend}",
+                   SELFTRAINED_STEPS)
+        mse, sse = quality(log)
+        report[backend] = {"wall_s_cold": wall, "mse_x1": mse, "sse_x1": sse,
+                           "u_abs_max": float(log.u.abs().max())}
+        logs[backend] = (mse, sse)
+        if backend == "pallas":
+            counts = got
+    for i, what in enumerate(("tracking MSE", "steady-state error")):
+        a, b = logs["pallas"][i], logs["xla"][i]
+        if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
+            fail(f"duffing_selftrained {what}: kernel {a} vs plain {b}")
+    report["early_f64"] = early_f64_gate(
+        lambda backend, steps: selftrained_config(encoder, backend, steps),
+        device, "duffing_selftrained", tol=SELFTRAINED_F64_TOL)
+    shipped = os.path.join(ROOT, "artifacts",
+                           "duffing_kmae_refscale_encoder.mat")
+    (_, log), _ = timed(config_loop(selftrained_config(
+        shipped, "pallas", SELFTRAINED_STEPS), device))
+    mse, sse = quality(log)
+    report["shipped_encoder"] = {"weights": os.path.relpath(shipped, ROOT),
+                                 "mse_x1": mse, "sse_x1": sse}
+    report["flagship_random_init"] = {"mse_x1": flagship_quality[0],
+                                      "sse_x1": flagship_quality[1]}
+    return counts, report
+
+
+def markov_check(model):
+    """Each log-depth Markov build's F1 and F2 on ``model`` (phase 3's end
+    state, HORIZON) against 'dag', float32 and float64: the largest gap
+    over scenarios relative to that scenario's largest entry, held to
+    MARKOV_RTOL or, in float32, to twice 'dag''s own float32 error (against
+    'dag' in float64 on the same models) where that is larger: 'dag'
+    itself is ~2e-5 off in float32 on these models (2048 CPU scenarios),
+    20 powers of A with spectral radius up to ~1.18, and a build as
+    accurate as 'dag' lies within twice that of it. The bound reads no
+    number of the build under test."""
+    import torch
+    from koopmanx_torch.control.condensed import prediction_matrices
+    from koopmanx_torch.types import LinearModel
+
+    def gaps(got, ref):
+        return [float(((g.double() - r.double()).abs().amax((-2, -1))
+                       / r.double().abs().amax((-2, -1)).clamp(min=1e-30))
+                      .max()) for g, r in zip(got, ref)]
+
+    exact = prediction_matrices(
+        LinearModel(*(t.double() for t in model)), HORIZON, method="dag")
+    report = {}
+    for dtype, rtol in MARKOV_RTOL.items():
+        m = LinearModel(*(t.to(getattr(torch, dtype)) for t in model))
+        dag = prediction_matrices(m, HORIZON, method="dag")
+        dag_err = gaps(dag, exact)
+        for method in ("doubling", "assoc"):
+            got = prediction_matrices(m, HORIZON, method=method)
+            gap = gaps(got, dag)
+            bound = rtol
+            if dtype == "float32":
+                bound = max(rtol, 2 * max(dag_err))
+            report[f"{method} {dtype}"] = {"f1": gap[0], "f2": gap[1],
+                                           "bound": bound}
+            if not max(gap) <= bound:
+                fail(f"markov {method} {dtype}: F1/F2 off 'dag' by {gap}")
+        report[f"dag {dtype} vs float64"] = {"f1": dag_err[0],
+                                             "f2": dag_err[1]}
+    return report
+
+
+def phase_l7(device, end_model):
+    """Phase 18 (d): the flagship over L7_STEPS on the kernel route with
+    each L7 option (L7_RUNS): L7_STEPS launches, finite, |u| <= 2; then
+    ``markov_check`` on phase 3's end-state models."""
+    from koopmanx_torch.cli import _apply_overrides
+    from koopmanx_torch.configs import flagship_config
+
+    report, counts = {}, {}
+    for key, value in L7_RUNS:
+        cfg = _apply_overrides(flagship_config(L7_STEPS, HORIZON, "pallas"),
+                               [f"{key}={value}"])
+        run = config_loop(cfg, device)
+        zero_counts()
+        (carry, log), wall = timed(run)
+        got = read_counts()
+        name = f"{key}={value}"
+        if got != {"box_admm": L7_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+            fail(f"{name} launched {got}")
+        check_loop(carry, log, name, L7_STEPS)
+        counts[name] = got["box_admm"]
+        report[name] = {"nlift": run.pipe.dictionary.nlift,
+                        "wall_s_cold": wall,
+                        "ms_per_step_cold": wall / L7_STEPS * 1e3,
+                        "u_abs_max": float(log.u.abs().max()),
+                        "sse_x1": quality(log, tail=20)[1]}
+    report["markov_vs_dag"] = markov_check(end_model)
+    return counts, report
+
+
+def phase_training(device, card: str, end_model, flagship_quality):
+    """Phase 18: (a) training through the CLI, (b) the card against the
+    CPU, (c) the trained encoder in the loop, (d) the L7 options. Returns
+    the B1 launches by path and the report."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kmae_") as tmp:
+        state, encoder, train = train_through_cli(device, tmp)
+        train.update(train_step_report(device, state))
+        print("phase 18 (a) training " + json.dumps(train), flush=True)
+        t_a = time.perf_counter() - t0
+        check = train_card_vs_cpu(device)
+        print("phase 18 (b) card vs CPU " + json.dumps(check), flush=True)
+        sel_counts, sel = phase_selftrained(device, encoder, flagship_quality)
+        print("phase 18 (c) duffing_selftrained " + json.dumps(sel),
+              flush=True)
+    l7_counts, l7 = phase_l7(device, end_model)
+    print("phase 18 (d) L7 " + json.dumps(l7), flush=True)
+    counts = {"duffing_selftrained, trained encoder (phase 18)":
+              sel_counts["box_admm"],
+              "training (phase 18)": train["launches"]["box_admm"],
+              **{f"{k} (phase 18)": v for k, v in l7_counts.items()}}
+    report = {"training": train, "training_s": t_a, "card_vs_cpu_f64": check,
+              "duffing_selftrained": sel, "l7": l7,
+              "phase_s": time.perf_counter() - t0, "card": card}
+    return counts, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -2935,7 +3330,13 @@ def main() -> int:
         "lmi": {k: lmi[k] for k in ("pallas", "xla", "early_f64", "step")},
         "lqr": lqr, "local_linear": local, "spectral_drift": drift,
         "shooting": shooting}, "card": card}), flush=True)
-    print(f"phase 17: {time.perf_counter() - t17:.1f} s; phases 1-17: "
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # ---- 18. KMAE training, the trained encoder in the loop, L7 ----
+    training_counts, training = phase_training(
+        device, card, carry_k.model, (mse_k, sse_k))
+    print(json.dumps({"training": training}), flush=True)
+    print(f"phase 18: {training['phase_s']:.1f} s; phases 1-18: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
@@ -2953,7 +3354,8 @@ def main() -> int:
         **serving_counts,
         "revise2_duffing, LMI terminal (phase 17)": lmi_counts["box_admm"],
         "LQR (phase 17)": lqr["launches"],
-        "local-linear (phase 17)": local_counts["box_admm"]}
+        "local-linear (phase 17)": local_counts["box_admm"],
+        **training_counts}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -3,6 +3,7 @@
   python -m koopmanx_torch.cli run --preset duffing --steps 300
   python -m koopmanx_torch.cli run --config my_config.json --save-log out.npz
   python -m koopmanx_torch.cli sweep --preset duffing --batch 8192
+  python -m koopmanx_torch.cli train --system duffing --export out/duffing
   python -m koopmanx_torch.cli presets
 
 Runs go to the CUDA card unless ``--cpu`` asks for the CPU; without a card
@@ -11,8 +12,9 @@ route (``mpc.qp_backend='pallas'``, the hand-written box-ADMM kernel) unless
 ``-o mpc.qp_backend=xla`` asks for the plain PyTorch route; with ``--cpu``
 the plain route. The presets' own default is ``'xla'``, as in the JAX
 package, so the CLI sets the route itself. ``--x64`` runs in float64.
-``bench`` (ROADMAP L5), ``train`` (item 18) and ``--figures`` (item 21)
-are not ported and raise ``NotImplementedError``.
+``train`` fits a KMAE encoder and decoder on the same device rule.
+``bench`` (ROADMAP L5) and ``--figures`` (item 21) are not ported and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -235,7 +237,30 @@ def cmd_bench(args):
 
 
 def cmd_train(args):
-    _not_ported("the train subcommand (KMAE training)", "item 18")
+    """Collect the system's random-excitation data, fit a KMAE encoder
+    and decoder (``--checkpoint`` is written and, where it exists, resumed
+    from), export the ``.mat`` weights and print the last epoch's record."""
+    import torch
+
+    from .systems.data import collect
+    from .systems.library import get_system
+    from .train.kmae import KMAEConfig
+    from .train.trainer import export_weights, fit
+
+    device = _device(args)
+    data = collect(get_system(args.system),
+                   torch.Generator().manual_seed(args.seed),
+                   n_step=args.n_step, n_traj=args.n_traj)
+    cfg = KMAEConfig(pred_horizon=args.pred_horizon, epochs=args.epochs)
+    state, history = fit(data, n_step=args.n_step, cfg=cfg, nlift=args.nlift,
+                         hidden=args.hidden, seed=args.seed,
+                         checkpoint_path=args.checkpoint,
+                         resume=bool(args.checkpoint), device=device)
+    if args.export:
+        export_weights(state, args.export)
+        print(f"weights exported to {args.export}_encoder.mat / "
+              "_decoder.mat", file=sys.stderr)
+    print(json.dumps({"final": history[-1] if history else None}, indent=2))
 
 
 def _device_flags(p, x64: bool = True):
@@ -272,7 +297,7 @@ def main(argv=None):
     _device_flags(pv)
     pv.set_defaults(fn=cmd_validate)
 
-    pt = sub.add_parser("train", help="not ported (ROADMAP item 18)")
+    pt = sub.add_parser("train", help="train a KMAE encoder/decoder")
     pt.add_argument("--system", default="duffing")
     pt.add_argument("--nlift", type=int, default=8)
     pt.add_argument("--hidden", type=int, default=100)
@@ -281,9 +306,12 @@ def main(argv=None):
     pt.add_argument("--n-step", type=int, default=100)
     pt.add_argument("--n-traj", type=int, default=100)
     pt.add_argument("--seed", type=int, default=0)
-    pt.add_argument("--checkpoint")
-    pt.add_argument("--export")
-    pt.add_argument("--cpu", action="store_true")
+    pt.add_argument("--checkpoint",
+                    help="npz checkpoint path (resume if exists)")
+    pt.add_argument("--export", help="prefix for .mat weight export")
+    pt.add_argument("--cpu", action="store_true",
+                    help="train on the CPU (default: the CUDA card, which "
+                         "must be present)")
     pt.set_defaults(fn=cmd_train)
 
     pb = sub.add_parser("bench", help="not ported (ROADMAP L5)")

@@ -32,7 +32,7 @@ class DataConfig:
 
 @dataclasses.dataclass
 class LiftConfig:
-    kind: str = "mlp"  # mlp | rbf | fourier (hermite, monomial: ROADMAP L7)
+    kind: str = "mlp"  # mlp | rbf | fourier | hermite | monomial | identity
     nlift: int = 8
     hidden: int = 100
     rbf_type: str = "thinplate"
@@ -63,7 +63,7 @@ class MPCConfig:
     terminal_synthesis: bool = False
     terminal_mode: str = "dare"  # dare | lmi (the Revise_2 LMI, control/lmi.py)
     state_bounds: Optional[Tuple[float, float]] = None
-    markov: str = "dag"  # prediction-matrix build: dag | scan
+    markov: str = "dag"  # prediction-matrix build: dag|doubling|assoc|scan
     qp_iters: int = 60
     qp_rho: float = 0.1
     qp_unroll: int = 10  # scan unroll in JAX; no meaning in eager PyTorch

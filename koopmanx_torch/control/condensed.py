@@ -1,8 +1,8 @@
 """Condensed (dense) MPC QP construction (counterpart of
 ``koopmanx/control/condensed.py``: ``prediction_matrices`` :53-93 with the
-'dag' :223-246 and 'scan' :37-50 builds, ``augment_delta_u`` :96-112,
-``weight_bar`` :115-123 with its terminal-block override and
-``condensed_qp`` :126-170, box and general).
+'dag' :223-246, 'doubling' :173-192, 'assoc' :208-220 and 'scan' :37-50
+builds, ``augment_delta_u`` :96-112, ``weight_bar`` :115-123 with its
+terminal-block override and ``condensed_qp`` :126-170, box and general).
 
 All functions take a leading scenario axis (models (B, N, N) etc.).
 
@@ -60,6 +60,56 @@ def markov_dag(a: Tensor, b: Tensor, cy_c: Tensor, horizon: int):
     return rows, markov
 
 
+def _rows_markov_from_powers(powers: Tensor, b: Tensor, cy_c: Tensor):
+    """(rows, markov) from the stack [A^1..A^N] (..., N, nz, nz):
+    rows_j = CyC A^{j+1}, markov_j = (CyC A^j) B."""
+    nz = powers.shape[-1]
+    eye = torch.eye(nz, dtype=powers.dtype, device=powers.device)
+    pow0 = torch.cat([eye.expand(powers.shape[:-3] + (1, nz, nz)),
+                      powers[..., :-1, :, :]], dim=-3)  # A^0..A^(N-1)
+    cy = cy_c.unsqueeze(-3)
+    markov = (cy @ pow0) @ b.unsqueeze(-3)  # (..., N, py, m)
+    rows = cy @ powers  # (..., N, py, nz)
+    return rows, markov
+
+
+def markov_doubling(a: Tensor, b: Tensor, cy_c: Tensor, horizon: int):
+    """The power stack [A^1..A^N] by doubling: [A^1] -> [A^1..A^2] -> ...,
+    each round the stack times its top power, concatenated, in
+    ceil(log2 N) rounds; then the rows and Markov parameters from it."""
+    powers = a.unsqueeze(-3)  # (..., 1, nz, nz)
+    while powers.shape[-3] < horizon:
+        top = powers[..., -1:, :, :]  # A^(len)
+        powers = torch.cat([powers, powers @ top], dim=-3)
+    return _rows_markov_from_powers(powers[..., :horizon, :, :], b, cy_c)
+
+
+def markov_assoc(a: Tensor, b: Tensor, cy_c: Tensor, horizon: int):
+    """The power stack [A^1..A^N] as an inclusive matmul scan of N copies
+    of A on one fixed (..., N, nz, nz) buffer, in log depth: an up-sweep
+    leaves at index i the product of the 2^t entries that end there (2^t
+    the largest power of two dividing i + 1), then a down-sweep completes
+    the other prefixes, each level one batched matmul over the indices it
+    writes (disjoint from those it reads). ``lax.associative_scan``'s
+    shape without the concatenations of :func:`markov_doubling`."""
+    buf = a.unsqueeze(-3).expand(
+        a.shape[:-2] + (horizon,) + a.shape[-2:]).clone()
+    top = 1 << (horizon - 1).bit_length()  # the power of two >= horizon
+    at = lambda start, step: torch.arange(start, max(start, horizon), step,
+                                          device=a.device)
+    d = 1
+    while d < horizon:  # up-sweep
+        idx = at(2 * d - 1, 2 * d)
+        buf[..., idx, :, :] = buf[..., idx - d, :, :] @ buf[..., idx, :, :]
+        d *= 2
+    d = top // 4
+    while d >= 1:  # down-sweep
+        idx = at(3 * d - 1, 2 * d)
+        buf[..., idx, :, :] = buf[..., idx - d, :, :] @ buf[..., idx, :, :]
+        d //= 2
+    return _rows_markov_from_powers(buf, b, cy_c)
+
+
 def prediction_matrices(model: LinearModel, horizon: int,
                         cy: Optional[Tensor] = None,
                         method: str = "dag") -> PredictionMatrices:
@@ -68,14 +118,12 @@ def prediction_matrices(model: LinearModel, horizon: int,
     cy_c = c if cy is None else cy @ c
     py, nz = cy_c.shape[-2], model.A.shape[-1]
     m = model.B.shape[-1]
-    if method == "dag":
-        rows, markov = markov_dag(model.A, model.B, cy_c, horizon)
-    elif method == "scan":
-        rows, markov = markov_scan(model.A, model.B, cy_c, horizon)
-    else:
-        raise NotImplementedError(
-            f"markov method {method!r} is not ported (the port has dag, scan)"
-        )
+    builds = {"dag": markov_dag, "doubling": markov_doubling,
+              "assoc": markov_assoc, "scan": markov_scan}
+    if method not in builds:
+        raise ValueError(f"unknown markov method {method!r}; "
+                         f"available: {sorted(builds)}")
+    rows, markov = builds[method](model.A, model.B, cy_c, horizon)
     batch = rows.shape[:-3]
     f1 = rows.reshape(batch + (horizon * py, nz))
     # F2[i, j] = markov[i - j] for i >= j (block indices), else 0

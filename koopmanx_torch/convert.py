@@ -8,6 +8,8 @@ This module imports no JAX. ``arrays`` is a dict:
   - ``"mlp"``: ``[(W, b), ...]``, W in the (out, in) convention;
   - ``"rbf"``: ``{"centers": (K, n), "kind": str}``;
   - ``"fourier"``: ``{"w": (D, n), "b": (D,)}``;
+  - ``"hermite"``: ``{"degree": int, "reference_quirk": bool}``;
+  - ``"monomial"`` or ``"identity"``: True (no parameters);
 - ``"state_augmented"``, ``"zero_offset"`` (optional, default False): the
   wrappers of ``lifts/base.py`` around the base lift, as ``LiftConfig``
   names them (``zero_offset`` inside ``state_augmented`` when both);
@@ -34,6 +36,10 @@ This module imports no JAX. ``arrays`` is a dict:
 across the same way (``engine/controller.py::ControllerState``'s fields
 by name), so that the port's controller can go on from a JAX
 controller's state mid-run.
+
+:func:`kmae_state_from_numpy` and :func:`kmae_state_to_numpy` carry a
+KMAE training state across (``train/state.py`` holds them and the
+checkpoint schema; they are re-exported here).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from . import configs as C
 from .device import DeviceLike, resolve_device
@@ -53,14 +60,28 @@ from .lifts.base import (
     Dictionary,
     StateAugmented,
     ZeroOffset,
+    identity_dictionary,
     state_augmented,
     zero_offset,
 )
 from .lifts.fourier import RFF, fourier_dictionary
 from .lifts.mlp import MLP, encoder_dictionary
+from .lifts.poly import (
+    Hermite,
+    Monomial,
+    hermite_dictionary,
+    monomial_dictionary,
+)
 from .lifts.rbf import RBF, rbf_dictionary
 from .run import Pipeline, engine_config, ref_fn_for, store_dtype
 from .systems.library import get_system
+from .train.state import (
+    kmae_arrays_from_leaves,
+    kmae_leaves,
+    kmae_state_from_numpy,
+    kmae_state_to_numpy,
+    load_kmae_numpy,
+)
 from .tree import host_numpy, tree_map
 from .types import LinearModel, RLSState
 
@@ -104,6 +125,12 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
     elif "fourier" in arrays:
         rff = arrays["fourier"]
         dictionary = fourier_dictionary(t(rff["w"]), t(rff["b"]))
+    elif "hermite" in arrays:
+        dictionary = hermite_dictionary(**arrays["hermite"])
+    elif arrays.get("monomial"):
+        dictionary = monomial_dictionary()
+    elif arrays.get("identity"):
+        dictionary = identity_dictionary(system.n)
     else:
         mlp = MLP.from_params([(t(w), t(b)) for w, b in arrays["mlp"]])
         dictionary = encoder_dictionary(mlp, n=system.n)
@@ -167,6 +194,13 @@ def pipeline_to_numpy(pipe: Pipeline) -> Dict[str, Any]:
         arrays["rbf"] = {"centers": n(enc.centers), "kind": enc.kind}
     elif isinstance(enc, RFF):
         arrays["fourier"] = {"w": n(enc.w), "b": n(enc.b)}
+    elif isinstance(enc, Hermite):
+        arrays["hermite"] = {"degree": enc.degree,
+                             "reference_quirk": enc.reference_quirk}
+    elif isinstance(enc, Monomial):
+        arrays["monomial"] = True
+    elif isinstance(enc, nn.Identity):
+        arrays["identity"] = True
     else:
         arrays["mlp"] = [(n(w), n(b)) for w, b in enc.params()]
     arrays.update({

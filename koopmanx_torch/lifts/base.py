@@ -1,7 +1,8 @@
 """Lifting dictionaries psi: R^n -> R^N (counterpart of
 ``koopmanx/lifts/base.py``: the ``Dictionary`` wrapper,
-``constant_augmented`` at :83-96, ``state_augmented`` and ``zero_offset``
-at :100-129, ``normalized`` and ``fit_normalizer`` at :132-162).
+``identity_dictionary`` at :78-80, ``constant_augmented`` at :83-96,
+``state_augmented`` and ``zero_offset`` at :100-129, ``normalized`` and
+``fit_normalizer`` at :132-162).
 
 Where JAX held a pure apply function and a parameter pytree, the port
 holds an ``nn.Module`` encoder and the normalizer as buffers, so ``.to()``
@@ -69,6 +70,11 @@ class ConstantAugmented(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         one = torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
         return torch.cat([x, one], dim=-1)
+
+
+def identity_dictionary(n: int) -> Dictionary:
+    """psi(x) = x (``Revise_2/Koopman_update.m:65``, a commented option)."""
+    return Dictionary(nn.Identity(), nlift=n, n=n)
 
 
 def constant_augmented(n: int) -> Dictionary:

@@ -1,13 +1,13 @@
 """RunConfig -> pipeline -> closed-loop results (counterpart of
 ``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp, with the ``.mat``
 weights and their fallback; rbf with random or k-means centers; random
-Fourier features), ``_mpc_params`` :132-203 (lifted tracking included),
-``engine_config`` :206-251, ``_ref_fn`` :254-280 and ``build_pipeline``
-:282-412, with every estimator's initial state: the windowed estimator's
-prefilled ring, compressed or not, and the Woodbury lane's carried
-statistics; the storage method's training Grams; the SM, Gram-carry and
-square-root RLS priors, or their warm starts from the training Grams),
-``run_single`` :415 (one scenario as a batch of one) and
+Fourier features; the identity, Hermite and monomial lifts), ``_mpc_params``
+:132-203 (lifted tracking included), ``engine_config`` :206-251, ``_ref_fn``
+:254-280 and ``build_pipeline`` :282-412, with every estimator's initial
+state: the windowed estimator's prefilled ring, compressed or not, and the
+Woodbury lane's carried statistics; the storage method's training Grams; the
+SM, Gram-carry and square-root RLS priors, or their warm starts from the
+training Grams), ``run_single`` :415 (one scenario as a batch of one) and
 ``run_resumable`` :438-499 (the loop in checkpointed chunks).
 """
 from __future__ import annotations
@@ -40,6 +40,7 @@ from .lifts.base import (
     Dictionary,
     constant_augmented,
     fit_normalizer,
+    identity_dictionary,
     normalized,
     state_augmented,
     zero_offset,
@@ -47,6 +48,7 @@ from .lifts.base import (
 from .lifts.fourier import fourier_dictionary, rff_init
 from .lifts.io import load_mat_mlp
 from .lifts.mlp import MLP, encoder_dictionary, mlp_init
+from .lifts.poly import hermite_dictionary, monomial_dictionary
 from .lifts.rbf import kmeans, rbf_dictionary
 from .systems.data import Snapshots, collect, uniform
 from .systems.library import get_system
@@ -90,13 +92,17 @@ def build_dictionary(cfg: C.RunConfig, data: Snapshots,
     ``gen``), thinplate-family RBFs with k-means centers over the training
     states or centers ~ U[0, 1)^n, or random Fourier features whose
     bandwidth is in units of the training states' std (ddof 0, floored at
-    1e-3), all drawn from ``gen``; then ``zero_offset``,
+    1e-3), all drawn from ``gen``; or psi(x) = x, the tensor-product
+    Hermite lift of degree 4 (nlift 25) or the five monomials (the last
+    two over 2-D states); then ``zero_offset``,
     ``state_augmented`` (the two together are [x; g(x) - g(0)]); then
     ``normalized`` on the training states."""
     lc = cfg.lift
     system = get_system(cfg.system)
     dtype = torch_dtype(cfg.dtype)
-    if lc.kind == "mlp":
+    if lc.kind == "identity":
+        d = identity_dictionary(system.n)
+    elif lc.kind == "mlp":
         path = resolve_weights_path(lc.weights_path, system.name)
         if path is not None and not path.endswith(".mat"):
             raise NotImplementedError(
@@ -121,9 +127,10 @@ def build_dictionary(cfg: C.RunConfig, data: Snapshots,
         w, b = rff_init(gen, system.n, lc.nlift, bandwidth=lc.rff_bandwidth,
                         feature_scale=scale, dtype=dtype)
         d = fourier_dictionary(w, b)
-    elif lc.kind in ("hermite", "monomial", "identity"):
-        raise NotImplementedError(
-            f"lift kind {lc.kind!r} is not ported yet (ROADMAP queue A, L7)")
+    elif lc.kind == "hermite":
+        d = hermite_dictionary()
+    elif lc.kind == "monomial":
+        d = monomial_dictionary()
     else:
         raise ValueError(f"unknown lift kind {lc.kind!r}")
     if lc.zero_offset:

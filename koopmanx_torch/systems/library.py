@@ -3,9 +3,8 @@
 The port has the Duffing oscillator, the Van der Pol oscillator, the
 cascaded tanks (two and three stages, and the two-pump tank_mimo: exact
 discrete maps clamped at x >= 0), the damped pendulum and the one-state
-toy plant of the Revise_2 experiments; the other plant of the JAX
-registry (approach3) raises ``NotImplementedError`` naming its ROADMAP
-item.
+toy plant of the Revise_2 experiments and the approach3 plant of the
+KMAE training file: every plant of the JAX registry.
 """
 from __future__ import annotations
 
@@ -233,21 +232,41 @@ TOY1D = System(
     theta1=Toy1dParams(a1=0.4, a2=0.2, a3=-0.3),
 )
 
-REGISTRY = {s.name: s for s in (DUFFING, VANDERPOL, TANK, TANK3, TANK_MIMO,
-                                PENDULUM, TOY1D)}
 
-# plants of the JAX registry that later slices port (ROADMAP queue A)
-_NOT_PORTED = {
-    "approach3": "item 18 (training)",
-}
+
+class Approach3Params(NamedTuple):
+    """x1' = a x1 ; x2' = b x2 + x1^4 - 2 x1^2 + u
+    (DeepLearning_KoopmanControl_Approach3.py:91)."""
+
+    a: Tensor
+    b: Tensor
+
+
+def _approach3_f(t, x: Tensor, u: Tensor, th: Approach3Params) -> Tensor:
+    del t
+    x1, x2 = x[..., 0], x[..., 1]
+    x1_sq = x1 * x1
+    dx2 = th.b * x2 + x1_sq * x1_sq - 2.0 * x1_sq + u[..., 0]
+    return torch.stack([th.a * x1, dx2], dim=-1)
+
+
+# the KMAE training file's plant; no switch (theta1 = theta0)
+APPROACH3 = System(
+    name="approach3",
+    n=2,
+    m=1,
+    f=_approach3_f,
+    theta0=Approach3Params(a=-0.1, b=-1.0),
+    theta1=Approach3Params(a=-0.1, b=-1.0),
+)
+
+REGISTRY = {s.name: s for s in (DUFFING, VANDERPOL, TANK, TANK3, TANK_MIMO,
+                                PENDULUM, TOY1D, APPROACH3)}
 
 
 def get_system(name: str) -> System:
-    if name in REGISTRY:
+    try:
         return REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"system {name!r} is not ported yet: ROADMAP queue A, "
-            f"{_NOT_PORTED[name]}"
-        )
-    raise KeyError(f"unknown system {name!r}; available: {sorted(REGISTRY)}")
+    except KeyError:
+        raise KeyError(
+            f"unknown system {name!r}; available: {sorted(REGISTRY)}") from None

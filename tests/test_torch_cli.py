@@ -148,7 +148,18 @@ def test_sweep_validate_and_modes_on_the_cpu(capsys):
     (["run", "--cpu", "--figures", "out"], "item 21"),
     (["modes", "--cpu", "--figures", "out"], "item 21"),
 ])
-def test_refused_subcommands_name_their_item(argv, item):
+def test_refused_subcommands_name_their_item(argv, item, capsys):
+    """The subcommands and flags of later items raise, naming their ROADMAP
+    item. ``train`` (item 18) is ported: at a tiny size it trains and
+    prints the last epoch's record (tests/test_torch_train.py holds it to
+    the JAX package)."""
+    if argv[0] == "train":
+        cli.main([*argv, "--n-step", "10", "--n-traj", "8", "--hidden", "8",
+                  "--nlift", "4", "--pred-horizon", "3", "--epochs", "1"])
+        out = capsys.readouterr().out
+        final = json.loads(out[out.index("\n{") + 1:])["final"]
+        assert final["epoch"] == 0 and np.isfinite(final["loss"])
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
         cli.main(argv)
 

@@ -223,32 +223,27 @@ def test_build_pipeline_runs_the_flagship_loop_small_on_cpu():
 
 
 def test_unported_options_raise():
-    """The options of later slices raise, naming their ROADMAP item: the
-    polynomial and identity lifts (L7). The LMI terminal (item 14b) and
-    the LQR controller (item 15) are ported (tests/test_torch_lmi.py,
-    tests/test_torch_lqr.py): on the same tank config they build and run
-    two steps with finite inputs in the box, neither launching the
-    kernel on CPU tensors. The Woodbury lane, a compressed ring, k-means
-    centers and Fourier lifts (item 11) are ported
+    """Options of earlier ROADMAP items, now ported, build and run. The
+    polynomial and identity lifts (L7, tests/test_torch_poly_markov.py),
+    the LMI terminal (item 14b) and the LQR controller (item 15,
+    tests/test_torch_lmi.py, tests/test_torch_lqr.py): on the same tank
+    config each builds and runs two steps with finite inputs in the box,
+    none launching the kernel on CPU tensors. The Woodbury lane, a
+    compressed ring, k-means centers and Fourier lifts (item 11) are ported
     (tests/test_torch_rbf128.py), and so are the explicit applied-window
     rows and the state box (item 12, tests/test_torch_general_qp.py), the
     storage-method update and lifted tracking (item 13,
     tests/test_torch_estimators.py, tests/test_torch_vdp.py), and the DARE
     terminal synthesis (item 14a, tests/test_torch_revise2.py)."""
-    cases = [({"terminal_synthesis": True, "terminal_mode": "lmi"}, {},
-              None),
-             ({}, {"kind": "hermite"}, "L7"),
-             ({}, {"kind": "identity"}, "L7"),
-             ({"controller": "lqr"}, {}, None)]
-    for mpc, lift, item in cases:
+    cases = [({"terminal_synthesis": True, "terminal_mode": "lmi"}, {}),
+             ({}, {"kind": "hermite"}),
+             ({}, {"kind": "identity"}),
+             ({"controller": "lqr"}, {})]
+    for mpc, lift in cases:
         cfg = TC.tank_bench_config(steps=2)
         cfg.data = dataclasses.replace(cfg.data, n_step=5, n_traj=5)
         cfg.mpc = dataclasses.replace(cfg.mpc, **mpc)
         cfg.lift = dataclasses.replace(cfg.lift, **lift)
-        if item is not None:
-            with pytest.raises(NotImplementedError, match=item):
-                t_build_pipeline(cfg, device="cpu")
-            continue
         if mpc.get("controller") == "lqr":
             # the LQR law has no du formulation (a ValueError, as in JAX)
             cfg.mpc = dataclasses.replace(cfg.mpc, delta_u=False)

@@ -91,9 +91,20 @@ def test_sample_scenarios_ranges():
 
 
 def test_unported_system_raises():
-    for name, item in (("approach3", "item 18"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            tlib.get_system(name)
+    """Every plant of the JAX registry is ported: approach3 (item 18, the
+    training file's plant) steps finite from the registry, and an unknown
+    name raises KeyError."""
+    from koopmanx.systems.library import REGISTRY as JREGISTRY
+
+    assert set(tlib.REGISTRY) == set(JREGISTRY)
+    for name in ("approach3",):
+        system = tlib.get_system(name)
+        x = tbase.make_step(system, 0.05)(
+            torch.full((4, 2), 0.5, dtype=F64), torch.zeros((4, 1), dtype=F64),
+            tbase.as_params(system.theta0, F64, torch.device("cpu")))
+        assert x.shape == (4, 2) and bool(torch.isfinite(x).all())
+    with pytest.raises(KeyError, match="unknown system"):
+        tlib.get_system("no_such_plant")
 
 
 def test_entry_points_want_cuda_unless_asked_for_cpu():
