@@ -21,7 +21,8 @@ replacing a TPU kernel of the JAX package:
 Phases, each of which fails the run on error:
 
 1. build every kernel from ``koopmanx_torch/csrc`` (one nvcc per source,
-   all started together), print each one's register, stack and spill
+   all started together, and the native C++ plant of ``csrc/`` by g++
+   beside them), print each one's register, stack and spill
    report (and fail if ptxas gives a ``fused_qp`` or ``fused_qp_soa``
    instance any stack or spills) and the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -93,29 +94,29 @@ Phases, each of which fails the run on error:
    rbf128_bench_config``: 8192 scenarios with x0 ~ U[-2, 2]^2,
    param_scale 0.15, 126 k-means thinplate-eps RBF centers plus the state,
    normalized, nlift 128, N = 20, the Woodbury lane over a 256-step window
-   with polish 2, f32; 200 steps, the switch at step 100), through the
+   with polish 2, f32; cut to 60 steps, the switch at step 30), through the
    kernel route and the plain route, counts zeroed before each run and
-   read after: 200 ``box_admm`` launches, then 0. Gates: everything
+   read after: 60 ``box_admm`` launches, then 0. Gates: everything
    finite (the carried statistics included), |u| <= 2, kernel vs plain
    route over the first 16 steps in float64, and the float32 batch-mean
    control quality of x1. Prints the x1 tail means before and after the
    switch, both routes' warm wall time (one run each, plain first), and
    each run's peak device memory;
 10. drive the ``duffing_rff`` preset (32 random Fourier features plus the
-   state, nlift 34, N = 10, the Woodbury lane) at 8192 scenarios for 200
+   state, nlift 34, N = 10, the Woodbury lane) at 8192 scenarios for 60
    steps, and the phase 9 loop with its ring stored in bfloat16, both
-   through the kernel route with their launches counted: 200 each,
+   through the kernel route with their launches counted: 60 each,
    finite, |u| <= 2; their quality and peak memory printed beside phase
    9's;
 11. drive the two-pump tank, the JAX package's ``BENCH_PRESET=tank_mimo``
    workload (``koopmanx_torch.configs.tank_mimo_bench_config``: 8192
    scenarios with x0 ~ U[0, 2]^2, param_scale 0.15, m = 2 under a +-4 box
    per channel, thinplate RBF lift of 10 normalized, N = 20, the windowed
-   estimator over 256 observations refit every step, f32; 200 steps, the
-   switch at step 100), through the kernel route (the dense 40 x 40 KKT
-   inverse, then ``box_admm`` at nx = 40) and the plain route (the
+   estimator over 256 observations refit every step, f32; cut to 100
+   steps, the switch at step 50), through the kernel route (the dense
+   40 x 40 KKT inverse, then ``box_admm`` at nx = 40) and the plain route (the
    output-space low-rank inverse, then the plain ADMM), counts zeroed
-   before each run and read after: 200 ``box_admm`` launches, then 0.
+   before each run and read after: 100 ``box_admm`` launches, then 0.
    Gates: everything finite, |u| <= 4 per channel, x >= 0, kernel vs plain
    route over the first 16 steps in float64, the float32 batch-mean
    control quality of x2, and pump 2 carrying the load over the last 50
@@ -123,7 +124,7 @@ Phases, each of which fails the run on error:
    after the switch, both routes' warm wall time in turns and peak device
    memory;
 12. drive the general-inequality path (the plain ADMM with extra rows,
-   on either route, so 0 launches) at 8192 scenarios, f32, 60 steps: the
+   on either route, so 0 launches) at 8192 scenarios, f32, 30 steps: the
    tank bench with its applied window as explicit rows (|du| <= 0.5 and
    |u| <= 8 up to one f32 rounding) and the flagship with the state box
    |x| <= 1.05 over the horizon (|u| <= 2), each on both routes, with
@@ -134,9 +135,9 @@ Phases, each of which fails the run on error:
    vdp_bench_config``: 8192 scenarios with x0 ~ U[-2, 2]^2, param_scale
    0.15, the shipped encoder ``artifacts/vanderpol_kmae_encoder.mat``
    normalized, nlift 8, the QP tracking the lifted reference with C = I,
-   N = 20, square-root RLS with 1e5 priors, f32; 200 steps, the switch at
-   step 100), through the kernel route and the plain route, counts zeroed
-   before each run and read after: 200 ``box_admm`` launches, then 0.
+   N = 20, square-root RLS with 1e5 priors, f32; cut to 100 steps, the
+   switch at step 50), through the kernel route and the plain route,
+   counts zeroed before each run and read after: 100 ``box_admm`` launches, then 0.
    Gates: u finite and |u| <= 6, the model and the estimator finite in
    every scenario, at most 2 % of the scenarios escaped (their x
    non-finite: the plant's RK4 leaves its stability region past |x1| ~
@@ -160,11 +161,12 @@ Phases, each of which fails the run on error:
    each run and read after: ``revise2_duffing_bench_config`` (the JAX
    bench's ``BENCH_PRESET=revise2_duffing``: N = 20, the SM RLS
    warm-started from the batch Grams, the MATLAB RK4, the fallback
-   encoder with the state, nlift 10; 200 steps, the switch at 100: 200
-   ``box_admm`` launches, then 0), ``revise2_vdp_bench_config`` (lifted
-   tracking, the full P injected; cut from the bench's 200 steps to 40,
-   the switch at 20) and ``toy1d_bench_config`` (the one-state plant, no
-   synthesis; cut to 60 steps, the switch at 30, where its parameters do
+   encoder with the state, nlift 10; cut from the bench's 200 steps to 50,
+   the switch at 25: 50 ``box_admm`` launches, then 0),
+   ``revise2_vdp_bench_config`` (lifted tracking, the full P injected; cut
+   to 16 steps, the switch at 8) and ``toy1d_bench_config`` (the
+   one-state plant, no
+   synthesis; cut to 40 steps, the switch at 20, where its parameters do
    not change). Gates: u finite within the preset's box, the model, the
    estimator and the held certificate (P, K, gamma) finite in every
    scenario, x finite but for scenarios escaped as in phase 13, the
@@ -206,13 +208,13 @@ Phases, each of which fails the run on error:
 17. drive the other control laws at 8192 scenarios, f32, counts zeroed
    before each run and read after: (a) ``revise2_duffing_bench_config``
    with ``terminal_mode='lmi'`` (the Revise_2 LMI certificate each step:
-   13 sequential doubling DAREs; cut from the bench's 200 steps to 20),
+   13 sequential doubling DAREs; cut from the bench's 200 steps to 4),
    scenario 0 started from an initial A with a NaN entry, through the
-   kernel route and the plain route: 20 ``box_admm`` launches, then 0;
+   kernel route and the plain route: 4 ``box_admm`` launches, then 0;
    every scenario the DARE mode keeps finite stays finite (x, u, the
    held certificate), |u| <= 2, the poisoned scenario's first
    certificate fails the guard with a NaN feasibility; the float64 gate
-   of phase 15 at 256 scenarios over 12 steps. Prints ms/step, the share
+   of phase 15 at 256 scenarios over 4 steps. Prints ms/step, the share
    of fresh certificates, the share of each branch of the synthesis (the
    DARE point, the detuned pair, the fallback), the largest feasibility
    residual, one step's device operations, host synchronizations and
@@ -242,23 +244,61 @@ Phases, each of which fails the run on error:
    the same minibatches, the card against the CPU, within 1e-9 of each
    leaf's largest entry (or ten times the CPU's own spread with the
    snapshot rows summed in other orders, where larger); (c)
-   ``duffing_selftrained`` with the trained encoder for 200 steps (cut from
-   10000) on both routes: 200 launches, then 0, finite, |u| <= 2, quality
+   ``duffing_selftrained`` with the trained encoder for 100 steps (cut from
+   10000) on both routes: 100 launches, then 0, finite, |u| <= 2, quality
    within 1 % / 5 %, the float64 routes
    within 1e-9 (or ten times the plain route's one-ulp floor) at 256
    scenarios, its steady-state error beside the shipped encoder's; (d)
-   the flagship for 60 steps on the kernel route with ``lift.kind``
+   the flagship for 30 steps on the kernel route with ``lift.kind``
    hermite, monomial and identity and ``mpc.markov`` doubling and assoc:
-   60 launches each, finite, |u| <= 2; each Markov build's F1 and F2 on
+   30 launches each, finite, |u| <= 2; each Markov build's F1 and F2 on
    phase 3's end-state models within 1e-5 (float32; or twice the larger
    float32 error of the two builds against float64, where larger) and
    1e-12 (float64) of 'dag''s.
+19. the carried and bf16 KKT inverses, the reference's checkpoints and
+   hardware in the loop, counts zeroed before each run and read after:
+   (a) the flagship with ``qp_kkt_bf16`` (the inverse rounded through
+   bfloat16 before B1 on the kernel route, as before the plain ADMM) for
+   200 steps on both routes: 200 launches, then 0; finite, |u| <= 2,
+   quality within 1 % / 5 % between the routes, the steady-state error
+   within twice phase 3's float32 loop's, the float64 routes at 256
+   scenarios over 16 steps within 1e-9 (or ten times the plain route's
+   one-ulp floor); tests/test_engine.py:355-371's own loop (the shipped
+   duffing preset from its x_init, one scenario, 30 float32 steps on the
+   kernel route) within 0.05 of its float32 run; the flagship's first 30
+   steps against phase 3's loop printed beside the float32 loop's own
+   one-ulp-of-x0 spread (not gated); (b) the flagship on the plain route
+   with ``qp_kkt_refine=3``, ``qp_kkt_reanchor=16`` for 200 steps: the
+   exact inverse at steps 0, 16, ..., 192 only (13 anchors, 187 tracked
+   steps, counted), 0 launches, finite, |u| <= 2, the tracking MSE within
+   0.5 % of phase 4's exact plain loop and the steady-state error below
+   max(2x, 5e-3) of it; the kernel route with refine refused; one
+   tracked step, one anchor step and one exact plain step timed, counted
+   and profiled (device operations, idle share); (c) the shipped duffing
+   encoder and decoder written as a reference-layout ``torch.save(model)``
+   checkpoint (and its state_dict, which the port's reader must read as
+   ``torch.load(weights_only=True)`` does), then phase 8's preset with
+   that ``.pkl`` as its weights: 200 launches, x and u equal to phase 8's
+   bit for bit (or within phase 8's own run-to-run spread, measured); (d)
+   ``tools/bench_hil_torch.py``'s loop on the card against the native C++
+   plant (built by g++ into ``koopmanx_torch/_build/`` in phase 1): the
+   ``pendulum`` preset served by one ``Controller`` for 400 periods and
+   the ``tank`` preset by a ``BatchedController`` of 8192 plants for 300,
+   one launch a period, the (worst plant's) steady-state error below
+   0.05, each period's latency p50 / p99 and the plant step's share;
+   then every native plant and integrator against the port's RK4 on the
+   card in float64 at 8192 random states, within 1e-12 of max(1, |x|);
+   (e) a float64 ``BatchedController`` of 256 plants with the carried
+   inverse, the even plants reset at call 20 of 40: 4 sampled plants
+   against single Controllers (1e-9) and int-path twins (1e-12), as in
+   phase 16.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
 line, a serving JSON line (phase 16's latencies), a control-laws JSON
-line (phase 17), a training JSON line (phase 18), the card line
+line (phase 17), a training JSON line (phase 18), a phase 19 JSON line,
+the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -322,25 +362,28 @@ CONVERGED = {"horizon": 10, "iters": 800, "schulz_iters": 24, "tol": 5e-3}
 TANK_STEPS, DU_MAX, APPLIED_MAX, BOUND_SLACK = 400, 0.5, 8.0, 1e-6
 # phase 8: the shipped duffing preset
 PRESET_STEPS = 200
-# phases 9 and 10: the rbf128 bench and the duffing_rff preset, 200 steps
-# (the bench's own; the presets run 3000 and 10000), the switch at 100
-RBF128_STEPS = 200
-# phase 11: the tank_mimo bench (tank_mimo_bench_config), 200 steps (the
-# bench's own; the preset runs 3000), the switch at 100; its input box per
+# phases 9 and 10: the rbf128 bench and the duffing_rff preset, cut from
+# the bench's 200 steps to 60 for the script's time (the presets run 3000
+# and 10000), the switch at 30
+RBF128_STEPS = 60
+# phase 11: the tank_mimo bench (tank_mimo_bench_config), cut from the
+# bench's 200 steps to 100 (the preset runs 3000), the switch at 50, after
+# which pump 2 carries the load as it does at 200; its input box per
 # channel; the KKT width N*m = 40 that B1 runs there (shared-memory
 # instance), also checked in phase 2
-MIMO_STEPS, MIMO_U_MAX, MIMO_NX = 200, 4.0, 40
+MIMO_STEPS, MIMO_U_MAX, MIMO_NX = 100, 4.0, 40
 # phase 12: the general-inequality path (the tank's applied window as
 # rows, the flagship's state box), a short run
-GENERAL_STEPS, STATE_BOX = 60, (-1.05, 1.05)
-# phase 13: the VDP lifted-tracking bench (vdp_bench_config), 200 steps (the
-# bench's own; the preset runs 10000), the switch at 100, |u| <= 6. The
+GENERAL_STEPS, STATE_BOX = 30, (-1.05, 1.05)
+# phase 13: the VDP lifted-tracking bench (vdp_bench_config), cut from the
+# bench's 200 steps to 100 (the preset runs 10000), the switch at 50,
+# |u| <= 6. The
 # plant's RK4 at h = 0.05 leaves its stability region where h |c| x1^2
 # passes ~2.8 (c = -10: |x1| > ~2.4), and a scenario the controller drives
 # there goes non-finite in the JAX package too (0.44 % of 2048 on the CPU,
 # f32, 200 steps); the guard must hold its model and estimator, and at most
 # ESCAPE_SHARE of the batch may escape
-VDP_STEPS, VDP_U_MAX, ESCAPE_SHARE = 200, 6.0, 0.02
+VDP_STEPS, VDP_U_MAX, ESCAPE_SHARE = 100, 6.0, 0.02
 # phase 14: the estimators and references at full width, a short run
 ESTIMATOR_STEPS = 60
 # phases 13-14: kernel vs plain route over LOOP_EARLY_STEPS float64 steps
@@ -351,16 +394,17 @@ ESTIMATOR_STEPS = 60
 # steps from one ulp of x0 (CPU rehearsal at B = 256), as the JAX
 # package's own loop does (tests/test_torch_vdp.py)
 EARLY_BATCH, EARLY_TOL = 256, 1e-8
-# phase 15: the Revise_2 benches; revise2_duffing at the bench's 200 steps,
-# revise2_vdp cut to 40 and toy1d to 60 (each step's DARE synthesis is
-# ~6,500 eager operations, ~94 ms a step on the card: the phase must keep
-# the whole run near 480 s). The f64 gate's floor there also takes the
+# phase 15: the Revise_2 benches, cut from the bench's 200 steps:
+# revise2_duffing to 50, revise2_vdp to 16, toy1d to 40 (each step's DARE
+# synthesis is ~6,500 eager operations, ~94 ms a step on the card: the
+# script's phases 1-19 must fit in half its time limit). The f64 gate's
+# floor there also takes the
 # plain route's divergence from one ulp of the initial model's A and from
 # its ADMM sums reassociated: the lifted revise2_vdp loop, with the DARE's
 # P (trace up to ~1e6) in Qbar, moves the plain route under its own
 # reassociation 3.7 times past ten times its one-ulp-of-x0 floor (B = 256,
 # 16 f64 steps, H100), so that floor alone cannot bound any kernel
-REVISE2_STEPS = {"revise2_duffing": 200, "revise2_vdp": 40, "toy1d": 60}
+REVISE2_STEPS = {"revise2_duffing": 50, "revise2_vdp": 16, "toy1d": 40}
 # phase 16: the serving API. The fleet runs phase 3's 200 steps as 200
 # calls against the plant stepped outside it; in float64 it must equal the
 # fused loop, which runs the same eager operations in the same order. The
@@ -414,7 +458,7 @@ SWEEP_BATCH, SWEEP_STEPS = BATCH, STEPS
 # the CPU's own change when A moves by one ulp (the flagship's models
 # amplify round-off through the 200 projected steps: one ulp of A moves
 # the float32 result past 1e-3 on the CPU)
-LMI_STEPS, LMI_F64_STEPS, POISONED = 20, 12, 0
+LMI_STEPS, LMI_F64_STEPS, POISONED = 4, 4, 0
 LQR_STEPS, LQR_F64_BATCH, LQR_F64_CALLS = 60, 64, 20
 LOCAL_STEPS, LOCAL_F64_STEPS, LOCAL_F64_TOL, LOCAL_SSE_MAX = (
     STEPS, 60, 1e-9, 0.1)
@@ -423,7 +467,7 @@ PGD_TOL = {"float32": 1e-4, "float64": 1e-9}
 # the CPU reference of (e) runs the first PGD_CPU_BATCH of the 8192
 # scenarios (they do not mix: the card's values there are the whole
 # call's), its autograd on the host being the phase's slowest part
-PGD_CPU_BATCH = 1024
+PGD_CPU_BATCH = 256
 # phase 18: KMAE training at the reference's width through the CLI's
 # defaults (100 x 100 snapshots, 2-100-100-100-8 and back, horizon 6, 20
 # epochs with rec-only past epoch 5, 256 windows a batch: 36 steps an
@@ -446,12 +490,46 @@ TRAIN_ARGV = ["train", "--system", "duffing"]
 TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH, TRAIN_HIDDEN = 20, 36, 100
 TRAIN_TIMED_STEPS = 20
 TRAIN_CHECK_STEPS, TRAIN_F64_RTOL = 5, 1e-9
-SELFTRAINED_STEPS, SELFTRAINED_F64_TOL = 200, 1e-9
-L7_STEPS = 60
+SELFTRAINED_STEPS, SELFTRAINED_F64_TOL = 100, 1e-9
+L7_STEPS = 30
 L7_RUNS = (("lift.kind", "hermite"), ("lift.kind", "monomial"),
            ("lift.kind", "identity"), ("mpc.markov", "doubling"),
            ("mpc.markov", "assoc"))
 MARKOV_RTOL = {"float32": 1e-5, "float64": 1e-12}
+# phase 19: the carried and bf16 KKT inverses, the reference's .pkl
+# checkpoint, hardware-in-the-loop serving. (a) the flagship with
+# qp_kkt_bf16 on both routes over STEPS, its steady-state error within
+# BF16_SSE_FACTOR of phase 3's float32 loop, the float64 routes at
+# EARLY_BATCH over LOOP_EARLY_STEPS within BF16_F64_TOL (or ten times the
+# plain route's one-ulp floor); tests/test_engine.py:355-371's own loop
+# (the shipped duffing preset from its x_init, nominal parameters, one
+# scenario) over BF16_X_STEPS within BF16_X_TOL of its float32 run, that
+# test's bound. Over the flagship's 8192 scenarios the same head is
+# printed, not gated: the float32 loop moves itself by up to ~0.94 there
+# from one ulp of x0 (a CPU rehearsal at 2048 scenarios), so no per-
+# scenario 0.05 can hold. (b) the flagship on the plain route with REFINE
+# Newton-Schulz steps re-anchored every REANCHOR steps: the exact inverse
+# at steps 0, 16, ..., 192 and nowhere else; the tracking MSE within
+# REFINE_MSE_RTOL of phase 4's exact plain loop and the steady-state error
+# below max(2x, REFINE_SSE_FLOOR) of it (tests/test_kkt_refine.py:87-88).
+# (c) the shipped duffing encoder and decoder as a reference-layout
+# full-model checkpoint, read back by the port's loader through phase 8's
+# preset: phase 8's x and u bit for bit, or within phase 8's own
+# run-to-run spread. (d) HIL_RUNS: (preset, periods, plants; 0 = one
+# Controller) served against the native plant, the steady-state error
+# (worst plant) below HIL_SSE_MAX (the verify skill's healthy bound); the
+# native plant against the port's RK4 in float64 on BATCH random states
+# within NATIVE_RTOL of max(1, |x|). (e) a float64 BatchedController of
+# SERVE_REFINE["batch"] plants with the carried inverse over
+# SERVE_REFINE["calls"] calls, the even plants reset at
+# SERVE_REFINE["reset_at"]: the SAMPLED plants against single
+# Controllers (SINGLE_TOL) and int-path twins (SERVE_TOL), as phase 16
+BF16_X_STEPS, BF16_X_TOL, BF16_SSE_FACTOR, BF16_F64_TOL = 30, 0.05, 2.0, 1e-9
+REFINE, REANCHOR = 3, 16
+REFINE_MSE_RTOL, REFINE_SSE_FLOOR = 5e-3, 5e-3
+HIL_RUNS = (("pendulum", 400, 0), ("tank", 300, BATCH))
+HIL_SSE_MAX, NATIVE_RTOL = 0.05, 1e-12
+SERVE_REFINE = {"batch": 256, "calls": 40, "reset_at": 20}
 
 
 def fail(msg: str) -> None:
@@ -1343,7 +1421,8 @@ def phase_tank(device, card: str):
 
 def phase_duffing_preset(device, flagship_quality):
     """Phase 8: the shipped duffing preset (its .mat weights, normalized
-    lift, horizon 10) through the kernel route. Returns the launches."""
+    lift, horizon 10) through the kernel route. Returns the launches, the
+    log and the run's thunk (for phase 19 (c))."""
     import torch
     from koopmanx_torch.configs import duffing_nn_preset
     from koopmanx_torch.engine.scenario import sample_scenarios
@@ -1362,8 +1441,9 @@ def phase_duffing_preset(device, flagship_quality):
     sc = sample_scenarios(get_system(cfg.system),
                           torch.Generator().manual_seed(0), BATCH,
                           param_scale=0.15, device=device)
+    run = lambda: run_scenarios(pipe, sc)
     zero_counts()
-    (carry, log), wall = timed(lambda: run_scenarios(pipe, sc))
+    (carry, log), wall = timed(run)
     counts = read_counts()
     mse, sse = quality(log)
     report = {"weights": os.path.relpath(weights, ROOT), "batch": BATCH,
@@ -1377,7 +1457,7 @@ def phase_duffing_preset(device, flagship_quality):
     if counts["box_admm"] != PRESET_STEPS:
         fail(f"the duffing preset launched {counts} in {PRESET_STEPS} steps")
     check_loop(carry, log, "duffing preset", PRESET_STEPS)
-    return counts
+    return counts, log, run
 
 
 def config_loop(cfg, device, dtype: str = "float32",
@@ -1509,7 +1589,8 @@ def phase_rbf128(device, card: str):
                              "peak_gib": mem_k / 2**30},
             "plain_route": {**route(walls[run_plain]), "cold_wall_s": cold_p,
                             "peak_gib": mem_p / 2**30},
-            "x1_tail_mean_pre_switch": float(x1[:, switch - 50:switch].mean()),
+            "x1_tail_mean_pre_switch": float(
+                x1[:, max(switch - 50, 0):switch].mean()),
             "x1_tail_mean_post_switch": float(x1[:, -50:].mean()),
             "card": card}
     print(json.dumps(line), flush=True)
@@ -3143,6 +3224,439 @@ def phase_training(device, card: str, end_model, flagship_quality):
     return counts, report
 
 
+def expect_launches(got, want: int, name: str) -> None:
+    if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+        fail(f"{name} launched {got}, not {want} box_admm launches")
+
+
+def loop_args(run):
+    """The loop arguments of ``config_loop``'s thunk ``run`` (its
+    pipeline's shared leaves broadcast over its scenarios)."""
+    from koopmanx_torch.run import replicate
+
+    pipe, sc = run.pipe, run.batch
+    b = sc.x0.shape[0]
+    return (replicate(pipe.params, b), sc.x0, replicate(pipe.model0, b),
+            replicate(pipe.rls0, b), sc.theta0, sc.theta1)
+
+
+def bf16_flagship(backend: str, steps: int):
+    from koopmanx_torch.configs import flagship_config
+
+    cfg = flagship_config(steps=steps, horizon=HORIZON, qp_backend=backend)
+    cfg.mpc.qp_kkt_bf16 = True
+    return cfg
+
+
+def engine_test_loop(device, bf16: bool):
+    """tests/test_engine.py:355-371's loop at the port's full size: the
+    shipped duffing preset from its x_init with nominal parameters, one
+    scenario, BF16_X_STEPS float32 steps on the kernel route."""
+    from koopmanx_torch.configs import duffing_nn_preset
+    from koopmanx_torch.run import build_pipeline, run_single
+
+    cfg = duffing_nn_preset()
+    cfg.steps, cfg.mpc.qp_backend = BF16_X_STEPS, "pallas"
+    cfg.mpc.qp_kkt_bf16 = bf16
+    pipe = build_pipeline(cfg, device=device)
+    zero_counts()
+    _, log = run_single(pipe)
+    expect_launches(read_counts(), BF16_X_STEPS,
+                    f"the engine test's loop (bf16 {bf16})")
+    return log
+
+
+def phase_bf16(device, log_k, log_p, log_n):
+    """Phase 19 (a): the bf16 KKT inverse. ``log_k`` and ``log_p`` are
+    phase 3's and 4's float32 flagship logs (kernel, plain route),
+    ``log_n`` phase 4's plain route from x0 one ulp up. Returns the
+    kernel route's launches and the report."""
+    import torch
+
+    report, logs, counts = {}, {}, {}
+    for backend in ("pallas", "xla"):
+        run = config_loop(bf16_flagship(backend, STEPS), device)
+        zero_counts()
+        (carry, log), wall = timed(run)
+        got = read_counts()
+        expect_launches(got, STEPS if backend == "pallas" else 0,
+                        f"bf16 {backend}")
+        check_loop(carry, log, f"bf16 {backend}", STEPS)
+        logs[backend], counts[backend] = log, got["box_admm"]
+        mse, sse = quality(log)
+        report[backend] = {"launches": got, "wall_s_cold": wall,
+                           "ms_per_step_cold": wall / STEPS * 1e3,
+                           "mse_x1": mse, "sse_x1": sse}
+        if backend == "pallas":  # one step from the end state
+            report["step_kernel_route"] = step_report(one_step_loop(
+                run.pipe, loop_args(run), carry, STEPS))
+    for what, key in (("tracking MSE", "mse_x1"),
+                      ("steady-state error", "sse_x1")):
+        a, b = report["pallas"][key], report["xla"][key]
+        if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
+            fail(f"bf16 {what}: kernel {a} vs plain {b}")
+    sse32 = quality(log_k)[1]
+    report["f32_sse_x1_phase3"] = sse32
+    if not report["pallas"]["sse_x1"] <= BF16_SSE_FACTOR * sse32:
+        fail(f"bf16 steady-state error {report['pallas']['sse_x1']} past "
+             f"{BF16_SSE_FACTOR} x phase 3's {sse32}")
+    # the first BF16_X_STEPS steps against the float32 loops, by scenario
+    head = lambda a, b: (a.x[:, :BF16_X_STEPS]
+                         - b.x[:, :BF16_X_STEPS]).abs().amax((1, 2))
+    dx, floor = head(logs["pallas"], log_k), head(log_n, log_p)
+    report["flagship_first_steps_vs_f32"] = {
+        "steps": BF16_X_STEPS, "max_abs_dx": float(dx.max()),
+        "share_within_0.05": float((dx <= BF16_X_TOL).double().mean()),
+        "f32_one_ulp_x0_max_abs_dx": float(floor.max()),
+        "f32_one_ulp_x0_share_within_0.05": float(
+            (floor <= BF16_X_TOL).double().mean())}
+    # gated: the engine test's own loop
+    x32, x16 = (engine_test_loop(device, b).x for b in (False, True))
+    gap = float((x16 - x32).abs().max())
+    report["engine_test_loop"] = {"steps": BF16_X_STEPS, "launches":
+                                  BF16_X_STEPS, "max_abs_dx": gap,
+                                  "tol": BF16_X_TOL}
+    if not (bool(torch.isfinite(x16).all()) and gap < BF16_X_TOL):
+        fail(f"bf16: the engine test's loop moves {gap} from float32")
+    report["early_f64"] = early_f64_gate(
+        lambda b, st: bf16_flagship(b, st), device, "bf16",
+        tol=BF16_F64_TOL)
+    return counts["pallas"], report
+
+
+def phase_carried(device, log_p, cold_p):
+    """Phase 19 (b): the carried KKT inverse on the plain route, against
+    phase 4's exact plain loop ``log_p`` (its cold wall ``cold_p``)."""
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.engine import core
+    from koopmanx_torch.run import build_pipeline
+
+    def make(backend, steps, refine=REFINE):
+        cfg = flagship_config(steps=steps, horizon=HORIZON,
+                              qp_backend=backend)
+        cfg.mpc.qp_kkt_refine, cfg.mpc.qp_kkt_reanchor = refine, REANCHOR
+        return cfg
+
+    try:
+        build_pipeline(make("pallas", 1), device=device)
+        fail("the kernel route took qp_kkt_refine")
+    except ValueError as e:
+        if "qp_kkt_refine" not in str(e):
+            raise
+    run = config_loop(make("xla", STEPS), device)
+    # which steps ran the exact inverse, and how many the tracker
+    real = (core.carried_kkt_inverse, core.spd_inverse,
+            core.ns_tracking_inverse)
+    now, anchors, tracked = [None], [], [0]
+
+    def carried(cfg, kkt, prev, step):
+        now[0] = step
+        return real[0](cfg, kkt, prev, step)
+
+    def exact(*a, **k):
+        anchors.append(now[0])
+        return real[1](*a, **k)
+
+    def refine(*a, **k):
+        tracked[0] += 1
+        return real[2](*a, **k)
+
+    core.carried_kkt_inverse, core.spd_inverse = carried, exact
+    core.ns_tracking_inverse = refine
+    try:
+        zero_counts()
+        (carry, log), wall = timed(run)
+    finally:
+        (core.carried_kkt_inverse, core.spd_inverse,
+         core.ns_tracking_inverse) = real
+    expect_launches(read_counts(), 0, "the carried inverse (plain route)")
+    check_loop(carry, log, "carried inverse", STEPS)
+    want = list(range(0, STEPS, REANCHOR))
+    if anchors != want or tracked[0] != STEPS - len(want):
+        fail(f"carried inverse: exact at steps {anchors}, tracked "
+             f"{tracked[0]} steps (want {want})")
+    (mse, sse), (mse_p, sse_p) = quality(log), quality(log_p)
+    report = {"refine": REFINE, "reanchor": REANCHOR, "anchors": len(anchors),
+              "anchor_steps": anchors, "tracked_steps": tracked[0],
+              "mse_x1": mse, "sse_x1": sse, "exact_mse_x1": mse_p,
+              "exact_sse_x1": sse_p, "wall_s_cold": wall,
+              "ms_per_step_cold": wall / STEPS * 1e3,
+              "exact_ms_per_step_cold_phase4": cold_p / STEPS * 1e3,
+              "kernel_route_refused": True}
+    if not (abs(mse - mse_p) <= REFINE_MSE_RTOL * max(mse_p, 1e-9)
+            and sse < max(2.0 * sse_p, REFINE_SSE_FLOOR)):
+        fail(f"carried inverse quality {mse}, {sse} vs exact {mse_p}, "
+             f"{sse_p}")
+    # one step from the end state: a tracked step (200 % 16 = 8), an
+    # anchor step (208), and the exact plain loop's step
+    pipe, args = run.pipe, loop_args(run)
+    report["step_tracked"] = step_report(one_step_loop(pipe, args, carry,
+                                                       STEPS))
+    report["step_anchor"] = step_report(one_step_loop(
+        pipe, args, carry, STEPS + REANCHOR - STEPS % REANCHOR))
+    report["step_exact_plain"] = step_report(one_step_loop(
+        pipe, args, carry._replace(kkt_inv=()), STEPS, qp_kkt_refine=0))
+    return report
+
+
+def reference_checkpoint(tmp: str):
+    """The shipped duffing encoder and decoder (``artifacts/duffing_kmae_
+    {encoder,decoder}.mat``), cast to float32, as the reference writes its
+    ``AutoEncoder_*.pkl``: ``torch.save`` of a module whose ``Encoder`` and
+    ``Decoder`` are ReLU ``nn.Sequential``s; also its state_dict. Returns
+    (model, checkpoint path, state_dict path)."""
+    import torch
+    from torch import nn
+    from koopmanx_torch.lifts.io import load_mat_mlp
+
+    class AutoEncoder(nn.Module):
+        def __init__(self, enc, dec):
+            super().__init__()
+            self.Encoder, self.Decoder = (nn.Sequential(*[
+                m for i, (w, b) in enumerate(layers)
+                for m in ((nn.Linear(w.shape[1], w.shape[0]), nn.ReLU())
+                          if i < len(layers) - 1 else
+                          (nn.Linear(w.shape[1], w.shape[0]),))])
+                for layers in (enc, dec))
+            with torch.no_grad():
+                for seq, layers in ((self.Encoder, enc), (self.Decoder, dec)):
+                    linear = [m for m in seq if isinstance(m, nn.Linear)]
+                    for lin, (w, b) in zip(linear, layers):
+                        lin.weight.copy_(w)
+                        lin.bias.copy_(b)
+
+    # pickled by reference, as the reference's training script's class
+    AutoEncoder.__qualname__ = "AutoEncoder"
+    globals()["AutoEncoder"] = AutoEncoder
+    art = os.path.join(ROOT, "artifacts", "duffing_kmae_{}.mat")
+    model = AutoEncoder(*(load_mat_mlp(art.format(k), torch.float32)
+                          for k in ("encoder", "decoder")))
+    path = os.path.join(tmp, "AutoEncoder_duffing.pkl")
+    sd_path = os.path.join(tmp, "AutoEncoder_duffing_state_dict.pkl")
+    torch.save(model, path)
+    torch.save(model.state_dict(), sd_path)
+    return model, path, sd_path
+
+
+def phase_pkl(device, log8, run8):
+    """Phase 19 (c): the .pkl lift through phase 8's preset; ``log8`` and
+    ``run8`` are phase 8's kernel-route log and thunk. Returns the
+    launches and the report."""
+    import tempfile
+
+    import torch
+    from koopmanx_torch.configs import duffing_nn_preset
+    from koopmanx_torch.engine.scenario import sample_scenarios
+    from koopmanx_torch.lifts.io import load_torch_state_dict
+    from koopmanx_torch.run import build_pipeline, run_scenarios
+    from koopmanx_torch.systems.library import get_system
+
+    with tempfile.TemporaryDirectory(prefix="pkl_") as tmp:
+        model, path, sd_path = reference_checkpoint(tmp)
+        own = model.state_dict()
+        # the state_dict file through torch's own safe loader, the
+        # whole-model file against the module: the port's reader agrees
+        safe = torch.load(sd_path, weights_only=True)
+        for name, ours in ((sd_path, load_torch_state_dict(sd_path)),
+                           (path, load_torch_state_dict(path))):
+            if sorted(ours) != sorted(own) or not all(
+                    torch.equal(torch.from_numpy(ours[k]), safe[k])
+                    for k in own):
+                fail(f"the port's loader reads {os.path.basename(name)} "
+                     "otherwise than torch")
+        cfg = duffing_nn_preset()
+        cfg.steps, cfg.mpc.qp_backend = PRESET_STEPS, "pallas"
+        cfg.lift.weights_path = path
+        pipe = build_pipeline(cfg, device=device)
+    sc = sample_scenarios(get_system(cfg.system),
+                          torch.Generator().manual_seed(0), BATCH,
+                          param_scale=0.15, device=device)
+    zero_counts()
+    (carry, log), wall = timed(lambda: run_scenarios(pipe, sc))
+    got = read_counts()
+    expect_launches(got, PRESET_STEPS, "the .pkl duffing preset")
+    check_loop(carry, log, "the .pkl duffing preset", PRESET_STEPS)
+    gap = max(float((log.x - log8.x).abs().max()),
+              float((log.u - log8.u).abs().max()))
+    report = {"launches": got, "wall_s_cold": wall, "steps": PRESET_STEPS,
+              "torch": torch.__version__, "max_abs_gap_to_phase8": gap}
+    if gap > 0.0:
+        _, again = run8()
+        spread = max(float((again.x - log8.x).abs().max()),
+                     float((again.u - log8.u).abs().max()))
+        report["phase8_run_to_run_spread"] = spread
+        if gap > spread:
+            fail(f"the .pkl preset differs from phase 8 by {gap}, past "
+                 f"phase 8's own spread {spread}")
+    return got["box_admm"], report
+
+
+def native_vs_rk4(device):
+    """Every native plant, both integrators, float64 on BATCH random
+    states with per-plant parameters, against the port's RK4 on the card:
+    the largest error relative to max(1, |x|)."""
+    import numpy as np
+    import torch
+    from koopmanx_torch.systems.base import as_params, make_step
+    from koopmanx_torch.systems.library import get_system
+    from koopmanx_torch.systems.native import _SYS, native_step_batch
+
+    rng = np.random.default_rng(0)
+    worst = {}
+    for name in sorted(_SYS):
+        system = get_system(name)
+        for integ in ("rk4", "rk4_matlab"):
+            x = rng.uniform(0.1, 2.0, (BATCH, system.n))
+            u = rng.uniform(-1.0, 1.0, (BATCH, system.m))
+            theta = type(system.theta0)(*(
+                v * rng.uniform(0.9, 1.1, BATCH) for v in system.theta0))
+            got = native_step_batch(system, x, u, theta, 0.05, integ,
+                                    per_plant_theta=True)
+            ref = make_step(system, 0.05, integ)(
+                torch.tensor(x, device=device), torch.tensor(u, device=device),
+                as_params(theta, torch.float64, device)).cpu().numpy()
+            err = float((np.abs(got - ref) / np.maximum(1, np.abs(ref))).max())
+            worst[f"{name} {integ}"] = err
+            if not err <= NATIVE_RTOL:
+                fail(f"native {name} {integ} differs from the port's RK4 by "
+                     f"{err}")
+    return worst
+
+
+def phase_hil(device, card: str):
+    """Phase 19 (d): hardware in the loop through
+    ``tools/bench_hil_torch.py``'s functions on the card. Returns the
+    launches by run and the report."""
+    from koopmanx_torch.ops import native
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import bench_hil_torch
+
+    t0 = time.perf_counter()
+    native.load()  # builds the library; NativeUnavailable fails the run
+    report = {"native_build_s": time.perf_counter() - t0,
+              "native_library": os.path.relpath(str(native.LIB_PATH), ROOT)}
+    counts = {}
+    for preset, periods, fleet in HIL_RUNS:
+        cfg, pipe = bench_hil_torch.build(preset, periods, cpu=False)
+        zero = lambda k: zero_counts() if k == 0 else None
+        run = bench_hil_torch.serve(cfg, pipe, periods, fleet, on_period=zero)
+        got = read_counts()
+        expect_launches(got, periods, f"HIL {preset}")
+        out = bench_hil_torch.report(cfg, run, preset, fleet)
+        tr = out["tracking"]
+        sse = tr.get("steady_state_error",
+                     tr.get("worst_plant_steady_state_error"))
+        name = f"HIL {preset}, " + (f"fleet of {fleet}" if fleet else
+                                    "one Controller")
+        counts[f"{name} (phase 19)"] = got["box_admm"]
+        report[name] = {"launches": got, **out, "card": card}
+        if not (tr["finite"] and sse < HIL_SSE_MAX):
+            fail(f"{name}: steady-state error {sse} (finite {tr['finite']})")
+    report["native_vs_rk4_f64_rel"] = native_vs_rk4(device)
+    return counts, report
+
+
+def phase_serving_refine(device):
+    """Phase 19 (e): a float64 fleet with the carried inverse, the even
+    plants reset mid-run; the sampled plants against single Controllers
+    and int-path twins."""
+    import numpy as np
+    import torch
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.engine.controller import BatchedController, Controller
+    from koopmanx_torch.tree import tree_map
+
+    batch, calls, reset_at = (SERVE_REFINE[k] for k in ("batch", "calls",
+                                                         "reset_at"))
+    cfg = flagship_config(steps=calls, horizon=HORIZON, qp_backend="xla")
+    cfg.mpc.qp_kkt_refine, cfg.mpc.qp_kkt_reanchor = REFINE, REANCHOR
+    run = config_loop(cfg, device, "float64", batch=batch)
+    pipe, sc = run.pipe, run.batch
+    plant = external_plant(pipe, sc)
+    bc = BatchedController.from_pipeline(pipe, batch)
+    _, _, x = serve(bc, plant, sc.x0, reset_at)
+    singles = {}
+    for i in SAMPLED:
+        single = Controller.from_pipeline(pipe)
+        single.state = tree_map(lambda a: a[i:i + 1].clone(), bc.state)
+        single._k = bc.clocks[i:i + 1]
+        singles[i] = single
+    soft = torch.arange(batch) % 2 == 0
+    bc.reset(mask=soft)
+    for i, single in singles.items():
+        if bool(soft[i]):
+            single.reset()
+    if bool(bc.state.kkt_inv[soft.to(device)].abs().max() != 0):
+        fail("phase 19 (e): a reset plant kept its carried inverse")
+    clocks = bc.clocks
+    twins = {}
+    for i in SAMPLED:
+        twin = BatchedController.from_pipeline(pipe, batch)
+        twin.state = tree_map(lambda a: a[i:i + 1].expand_as(a).clone(),
+                              bc.state)
+        twin._k = np.full(batch, clocks[i])
+        twins[i] = twin
+    worst = dict.fromkeys(("single", "twin"), 0.0)
+    zero_counts()
+    for k in range(reset_at, calls):
+        u = bc.step(x)
+        for i in SAMPLED:
+            for name, got in (
+                    ("single", singles[i].step(x[i])),
+                    ("twin", twins[i].step(x[i:i + 1].expand(batch, -1))[0])):
+                worst[name] = max(worst[name],
+                                  float((got - u[i]).abs().max()))
+        x = plant(x, u, k)
+    expect_launches(read_counts(), 0, "phase 19 (e) (plain route)")
+    report = {"batch": batch, "calls": calls, "reset_at": reset_at,
+              "reset": int(soft.sum()), "sampled": list(SAMPLED),
+              "clocks_after_reset": sorted(set(clocks.tolist())),
+              "max_abs_du_vs_single": worst["single"],
+              "max_abs_du_vs_int_path_twin": worst["twin"],
+              "tol_single": SINGLE_TOL, "tol_twin": SERVE_TOL}
+    if not (worst["single"] <= SINGLE_TOL and worst["twin"] <= SERVE_TOL):
+        fail(f"phase 19 (e): reset plants differ: {report}")
+    return report
+
+
+def phase_l3_pkl_hil(device, card: str, flagship, log8, run8):
+    """Phase 19: (a)-(e). ``flagship`` holds phase 3-4's float32 logs
+    (kernel, plain, plain from x0 one ulp up) and the plain route's cold
+    wall. Returns the launches by path and the report."""
+    t0 = time.perf_counter()
+    log_k, log_p, log_n, cold_p = flagship
+    counts, report = {}, {"card": card}
+    t = time.perf_counter()
+    counts["flagship, bf16 KKT inverse (phase 19)"], report["bf16"] = (
+        phase_bf16(device, log_k, log_p, log_n))
+    counts["engine test loop, bf16 KKT inverse (phase 19)"] = BF16_X_STEPS
+    report["bf16"]["phase_s"] = time.perf_counter() - t
+    print("phase 19 (a) bf16 " + json.dumps(report["bf16"]), flush=True)
+    t = time.perf_counter()
+    report["carried"] = phase_carried(device, log_p, cold_p)
+    counts["flagship, carried KKT inverse (phase 19)"] = 0
+    report["carried"]["phase_s"] = time.perf_counter() - t
+    print("phase 19 (b) carried " + json.dumps(report["carried"]), flush=True)
+    t = time.perf_counter()
+    counts["duffing preset from .pkl (phase 19)"], report["pkl"] = phase_pkl(
+        device, log8, run8)
+    report["pkl"]["phase_s"] = time.perf_counter() - t
+    print("phase 19 (c) pkl " + json.dumps(report["pkl"]), flush=True)
+    t = time.perf_counter()
+    hil_counts, report["hil"] = phase_hil(device, card)
+    counts.update(hil_counts)
+    report["hil"]["phase_s"] = time.perf_counter() - t
+    print("phase 19 (d) HIL " + json.dumps(report["hil"]), flush=True)
+    t = time.perf_counter()
+    report["serving_refine"] = phase_serving_refine(device)
+    report["serving_refine"]["phase_s"] = time.perf_counter() - t
+    print("phase 19 (e) serving, carried inverse "
+          + json.dumps(report["serving_refine"]), flush=True)
+    report["phase_s"] = time.perf_counter() - t0
+    return counts, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -3160,23 +3674,33 @@ def main() -> int:
         return 3
     sys.path.insert(0, ROOT)
     from koopmanx_torch.device import resolve_device
-    from koopmanx_torch.ops import build
+    import threading
+
+    from koopmanx_torch.ops import build, native
     from koopmanx_torch.ops.box_admm import box_admm
 
     device = resolve_device(None)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    # ---- 1. build ----
+    # ---- 1. build: the CUDA kernels, and the native plant beside them ----
     t_start = t0 = time.perf_counter()
+    native_s = []
+    native_build = threading.Thread(target=lambda: (
+        native.load(), native_s.append(time.perf_counter() - t0)))
+    native_build.start()
     reports = build.build_all()
+    native_build.join()
+    native.load()  # raises NativeUnavailable where the thread's build failed
     build_s = time.perf_counter() - t0
     for name, log in reports.items():
         for line in log.splitlines():
             if any(k in line.lower() for k in ("compiling entry", "registers",
                                                 "spill", "error")):
                 print(f"nvcc {name}: {line.strip()}", flush=True)
-    print(f"phase 1 build: {sorted(reports)} in {build_s:.1f} s", flush=True)
+    print(f"phase 1 build: {sorted(reports)} in {build_s:.1f} s; the native "
+          f"plant {os.path.relpath(str(native.LIB_PATH), ROOT)} in "
+          f"{native_s[0]:.1f} s", flush=True)
     for name in ("fused_qp", "fused_qp_soa"):
         for kernel, stack, spill_st, spill_ld in ptxas_stack_and_spills(
                 reports.get(name, "")):
@@ -3186,12 +3710,15 @@ def main() -> int:
     card = card_line()
 
     # ---- 2. kernels vs plain versions ----
+    t2 = time.perf_counter()
     entry = phase_kernel_checks(
         device, ptxas_registers(reports.get("box_admm", "")))
     fused_entries = phase_fused_checks(
         device, {name: ptxas_registers(reports.get(name, ""))
                  for name in ("fused_qp", "fused_qp_soa")},
         parent_lib=opts.parent_fused_qp)
+    print(f"phase 2: {time.perf_counter() - t2:.1f} s", flush=True)
+    t3 = time.perf_counter()
 
     # ---- 3. the main path through the kernel ----
     run_kernel = run_loop("pallas", device)
@@ -3245,7 +3772,11 @@ def main() -> int:
         if not abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9):
             fail(f"{what}: kernel {a} vs plain {b}")
 
+    print(f"phases 3-4: {time.perf_counter() - t3:.1f} s", flush=True)
+    flagship = (log_k, log_p, log_n, cold_p)
+
     # ---- 5. warm timing, in turns: plain, kernel, kernel, plain ----
+    t5 = time.perf_counter()
     walls = {run_plain: [], run_kernel: []}
     for fn in (run_plain, run_kernel, run_kernel, run_plain):
         walls[fn].append(timed(fn)[1])
@@ -3276,10 +3807,15 @@ def main() -> int:
         phase_convergence(device)
     for name, fused in fused_entries.items():
         fused["launches"] = counts[name]
+    print(f"phases 5-6: {time.perf_counter() - t5:.1f} s", flush=True)
 
     # ---- 7. the tank path; 8. the shipped duffing preset ----
+    t7 = time.perf_counter()
     tank_counts = phase_tank(device, card)
-    preset_counts = phase_duffing_preset(device, (mse_k, sse_k))
+    print(f"phase 7: {time.perf_counter() - t7:.1f} s", flush=True)
+    t8 = time.perf_counter()
+    preset_counts, log8, run8 = phase_duffing_preset(device, (mse_k, sse_k))
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s", flush=True)
 
     # ---- 9. the large-lift path; 10. duffing_rff and the bf16 ring ----
     t9 = time.perf_counter()
@@ -3336,7 +3872,21 @@ def main() -> int:
     training_counts, training = phase_training(
         device, card, carry_k.model, (mse_k, sse_k))
     print(json.dumps({"training": training}), flush=True)
-    print(f"phase 18: {training['phase_s']:.1f} s; phases 1-18: "
+    print(f"phase 18: {training['phase_s']:.1f} s", flush=True)
+
+    # ---- 19. the carried and bf16 KKT inverses, the .pkl lift, HIL ----
+    l3_counts, l3 = phase_l3_pkl_hil(device, card, flagship, log8, run8)
+    print(json.dumps({"l3_pkl_hil": {
+        "bf16": {k: l3["bf16"][k] for k in (
+            "pallas", "xla", "engine_test_loop", "f32_sse_x1_phase3",
+            "step_kernel_route")},
+        "carried": {k: l3["carried"][k] for k in (
+            "anchors", "mse_x1", "sse_x1", "exact_mse_x1", "exact_sse_x1",
+            "ms_per_step_cold", "step_tracked", "step_anchor",
+            "step_exact_plain")},
+        "hil": {k: v for k, v in l3["hil"].items() if k.startswith("HIL")},
+        "card": card}}), flush=True)
+    print(f"phase 19: {l3['phase_s']:.1f} s; phases 1-19: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
@@ -3355,7 +3905,8 @@ def main() -> int:
         "revise2_duffing, LMI terminal (phase 17)": lmi_counts["box_admm"],
         "LQR (phase 17)": lqr["launches"],
         "local-linear (phase 17)": local_counts["box_admm"],
-        **training_counts}
+        **training_counts,
+        **l3_counts}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -13,8 +13,11 @@ is inverted once per call (``ops/linalg.spd_inverse`` at ``kkt_block``, on
 every route; the plain box path also takes the caller's inverse, as the
 engine's output-space construction gives it), then a fixed number of ADMM
 iterations runs, as plain tensor ops or, for the box path, in the CUDA
-kernel (:func:`solve_box_qp_batch_kernel`). The bf16 KKT inverse (JAX's
-``kkt_bf16``) is not ported (ROADMAP L3); the engine refuses it.
+kernel (:func:`solve_box_qp_batch_kernel`). Under ``kkt_bf16`` the
+inverse is rounded to bfloat16 once (round to nearest even, as JAX's
+``astype``) and read back in the working dtype, on every route: the
+kernel reads that rounded inverse too, where the JAX package's TPU Pallas
+route drops the flag (``koopmanx/control/qp.py:227-236``).
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ class ADMMConfig(NamedTuple):
     # normalize rho by trace(P)/nx (JAX's field; last here so that the
     # box path's positional callers keep their meaning)
     scale_rho: bool = True
+    # the KKT inverse rounded to bfloat16 (JAX's field; last, as above)
+    kkt_bf16: bool = False
 
 
 def _effective_rho(p: Tensor, cfg: ADMMConfig) -> Tensor:
@@ -55,6 +60,15 @@ def box_kkt(p: Tensor, cfg: ADMMConfig) -> Tensor:
     rho = _effective_rho(p, cfg)
     eye = torch.eye(nx, dtype=p.dtype, device=p.device)
     return p + (cfg.sigma + rho)[..., None, None] * eye
+
+
+def bf16_rounded(kkt_inv: Tensor, cfg: ADMMConfig) -> Tensor:
+    """``kkt_inv`` rounded to bfloat16 and read back in its own dtype under
+    ``cfg.kkt_bf16`` (JAX's ``astype(bfloat16)`` then ``astype(dtype)`` in
+    the iteration), else ``kkt_inv`` itself."""
+    if not cfg.kkt_bf16:
+        return kkt_inv
+    return kkt_inv.to(torch.bfloat16).to(kkt_inv.dtype)
 
 
 def _mv(m: Tensor, v: Tensor) -> Tensor:
@@ -78,7 +92,7 @@ def solve_qp(qp: QPData, cfg: ADMMConfig = ADMMConfig(),
     sigma, alpha = cfg.sigma, cfg.alpha
     eye = torch.eye(nx, dtype=p.dtype, device=p.device)
     kkt = p + sigma * eye + (rho[..., None] * at) @ a
-    kkt_inv = spd_inverse(kkt, block=cfg.kkt_block)
+    kkt_inv = bf16_rounded(spd_inverse(kkt, block=cfg.kkt_block), cfg)
     for _ in range(cfg.iters):
         rhs = sigma * x - q + _mv(at, rho * z - y)
         xt = _mv(kkt_inv, rhs)
@@ -111,8 +125,8 @@ def _solve(admm, p, q, lo, hi, cfg: ADMMConfig, x0, y0, kkt_inv=None):
     rho = _effective_rho(p, cfg)
     if kkt_inv is None:
         kkt_inv = spd_inverse(box_kkt(p, cfg), block=cfg.kkt_block)
-    out = admm(kkt_inv, q, lo, hi, x0, y0, rho, iters=cfg.iters,
-               sigma=cfg.sigma, alpha=cfg.alpha)
+    out = admm(bf16_rounded(kkt_inv, cfg), q, lo, hi, x0, y0, rho,
+               iters=cfg.iters, sigma=cfg.sigma, alpha=cfg.alpha)
     primal = (out.xt - torch.clamp(out.xt, lo, hi)).abs().amax(-1)
     dual = ((p @ out.z.unsqueeze(-1)).squeeze(-1) + q + out.y).abs().amax(-1)
     return QPSolution(
@@ -132,7 +146,8 @@ def solve_box_qp(p: Tensor, q: Tensor, lo: Tensor, hi: Tensor,
     """Box-constrained ADMM (A = I) as plain batched tensor ops: the
     counterpart of ``vmap(koopmanx.control.qp.solve_box_qp)``.
     ``kkt_inv``: the caller's inverse of :func:`box_kkt` (rho is still
-    computed from ``p``); None inverts here."""
+    computed from ``p``; ``kkt_bf16`` rounds it here); None inverts
+    here."""
     return _solve(box_admm_reference, p, q, lo, hi, cfg, x0, y0, kkt_inv)
 
 
@@ -142,8 +157,9 @@ def solve_box_qp_batch_kernel(p: Tensor, q: Tensor, lo: Tensor, hi: Tensor,
                               y0: Optional[Tensor] = None) -> QPSolution:
     """The same solve with the iterations in the box-ADMM kernel
     (counterpart of ``solve_box_qp_batch_pallas``): rho, the KKT inverse
-    and the residuals here, the iterations in :func:`box_admm`, which
-    launches the CUDA kernel for CUDA tensors."""
+    (rounded through bfloat16 under ``kkt_bf16``) and the residuals here,
+    the iterations in :func:`box_admm`, which launches the CUDA kernel for
+    CUDA tensors."""
     c = lambda t: None if t is None else t.contiguous()
     return _solve(box_admm, p, q.contiguous(), lo.contiguous(),
                   hi.contiguous(), cfg, c(x0), c(y0))

@@ -5,7 +5,8 @@ from the JAX pipeline with ``jax.tree_util.tree_map(np.asarray, ...)``.
 This module imports no JAX. ``arrays`` is a dict:
 
 - the base lift, one of
-  - ``"mlp"``: ``[(W, b), ...]``, W in the (out, in) convention;
+  - ``"mlp"``: ``[(W, b), ...]``, W in the (out, in) convention, or the
+    path of a ``.mat`` or ``.pkl`` weights file (``run.load_mlp_weights``);
   - ``"rbf"``: ``{"centers": (K, n), "kind": str}``;
   - ``"fourier"``: ``{"w": (D, n), "b": (D,)}``;
   - ``"hermite"``: ``{"degree": int, "reference_quirk": bool}``;
@@ -73,7 +74,13 @@ from .lifts.poly import (
     monomial_dictionary,
 )
 from .lifts.rbf import RBF, rbf_dictionary
-from .run import Pipeline, engine_config, ref_fn_for, store_dtype
+from .run import (
+    Pipeline,
+    engine_config,
+    load_mlp_weights,
+    ref_fn_for,
+    store_dtype,
+)
 from .systems.library import get_system
 from .train.state import (
     kmae_arrays_from_leaves,
@@ -132,7 +139,13 @@ def pipeline_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
     elif arrays.get("identity"):
         dictionary = identity_dictionary(system.n)
     else:
-        mlp = MLP.from_params([(t(w), t(b)) for w, b in arrays["mlp"]])
+        weights = arrays["mlp"]
+        if isinstance(weights, str):
+            weights = load_mlp_weights(weights, dtype)
+            if weights is None:
+                raise ValueError(f"{arrays['mlp']!r}: MLP weights are a "
+                                 ".mat or .pkl file")
+        mlp = MLP.from_params([(t(w), t(b)) for w, b in weights])
         dictionary = encoder_dictionary(mlp, n=system.n)
     if arrays.get("zero_offset"):
         dictionary = zero_offset(dictionary)
@@ -228,14 +241,11 @@ def controller_state_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
     absent without the 'full' warm start), ``"z_prev"``, ``"x_prev"``,
     ``"have_prev"``, ``"res_ema"`` and ``"cert"`` ((P, K, gamma) of the
     DARE or LMI terminal, or None or absent without terminal synthesis,
-    as in LQR mode). A fleet's arrays carry the
+    as in LQR mode) and ``"kkt_inv"`` (the carried KKT inverse under
+    ``qp_kkt_refine``, or None or absent). A fleet's arrays carry the
     plant axis first; a single controller's (``have_prev`` a scalar) get
-    a plant axis of one. A carried KKT inverse (``"kkt_inv"``) is ROADMAP
-    L3 and refused."""
+    a plant axis of one."""
     dev = resolve_device(device)
-    if not _absent(arrays.get("kkt_inv")):
-        raise NotImplementedError(
-            "the carried KKT inverse is not ported yet (ROADMAP queue A, L3)")
     single = np.ndim(arrays["have_prev"]) == 0
     add_axis = (lambda a: np.asarray(a)[None]) if single else np.asarray
     t = lambda a: torch.tensor(add_axis(a), dtype=dtype, device=dev)
@@ -255,6 +265,7 @@ def controller_state_from_numpy(arrays: Dict[str, Any], cfg: C.RunConfig,
                                dtype=torch.bool, device=dev),
         res_ema=t(arrays["res_ema"]),
         cert=opt("cert", lambda c: tuple(t(a) for a in c)),
+        kkt_inv=opt("kkt_inv", t),
     )
 
 
@@ -270,4 +281,5 @@ def controller_state_to_numpy(state: ControllerState) -> Dict[str, Any]:
         "warm_y": n(state.warm_y) if isinstance(state.warm_y, torch.Tensor)
         else None,
         "cert": None if _absent(state.cert) else n(state.cert),
+        "kkt_inv": None if _absent(state.kkt_inv) else n(state.kkt_inv),
     }

@@ -1,8 +1,9 @@
 """Batch EDMD regression through Gram statistics (counterpart of
-``koopmanx/edmd/batch.py:54-105``)."""
+``koopmanx/edmd/batch.py:46-121``), and the direct pseudo-inverse fit on
+the snapshot matrices."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import Tensor
@@ -23,6 +24,12 @@ class GramStats(NamedTuple):
     count: Tensor
 
 
+def lift_snapshots(dictionary: Dictionary, data: Snapshots
+                   ) -> Tuple[Tensor, Tensor]:
+    """Every snapshot pair lifted in one batched call: (psi(X), psi(Y))."""
+    return dictionary(data.x), dictionary(data.y)
+
+
 def gram_stats(zx: Tensor, zy: Tensor, u: Tensor, x: Tensor) -> GramStats:
     v = torch.cat([zx, u], dim=-1)  # (S, N+m)
     return GramStats(
@@ -32,6 +39,11 @@ def gram_stats(zx: Tensor, zy: Tensor, u: Tensor, x: Tensor) -> GramStats:
         gzz=zx.T @ zx,
         count=torch.tensor(zx.shape[0], dtype=zx.dtype, device=zx.device),
     )
+
+
+def combine_gram_stats(a: GramStats, b: GramStats) -> GramStats:
+    """The statistics of two snapshot sets together (their sums)."""
+    return GramStats(*(p + q for p, q in zip(a, b)))
 
 
 def pinv(a: Tensor) -> Tensor:
@@ -60,7 +72,19 @@ def fit_from_grams(stats: GramStats, nlift: int) -> LinearModel:
 def edmd_fit(dictionary: Dictionary, data: Snapshots) -> LinearModel:
     """Batch EDMD: (A, B) from lifted one-step pairs, C from the output
     regression (``duffing.py:167-177``), by pinv."""
-    zx = dictionary(data.x)
-    zy = dictionary(data.y)
+    zx, zy = lift_snapshots(dictionary, data)
     stats = gram_stats(zx, zy, data.u, data.x)
     return fit_from_grams(stats, dictionary.nlift)
+
+
+def edmd_fit_pinv_direct(dictionary: Dictionary, data: Snapshots
+                         ) -> LinearModel:
+    """The pseudo-inverse fit on the snapshot matrices themselves, the
+    closest to the reference's ``Phi_Y @ pinv([Phi_X; U])``
+    (``duffing.py:167``): [A B] = (pinv([Zx U]) Zy)', C = (pinv(Zx) X)'.
+    For parity checks; the Gram path is the engine's."""
+    zx, zy = lift_snapshots(dictionary, data)
+    k_ext = (pinv(torch.cat([zx, data.u], dim=-1)) @ zy).T
+    c = (pinv(zx) @ data.x).T
+    nlift = dictionary.nlift
+    return LinearModel(A=k_ext[:, :nlift], B=k_ext[:, nlift:], C=c)

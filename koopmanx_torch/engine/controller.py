@@ -23,8 +23,9 @@ plant): after a masked :meth:`BatchedController.reset` the plants reset
 restart at 0 and the others keep counting. The clocks live on the host;
 while they agree the engine gets one int, as in the loop, and otherwise
 a (B,) tensor of per-plant steps. Every ``step`` runs under
-``torch.inference_mode()``. The carried KKT inverse (``qp_kkt_refine``)
-is ROADMAP L3: ``kkt_inv`` stays ``()``.
+``torch.inference_mode()``. Under ``qp_kkt_refine`` the state carries
+each plant's KKT inverse, which a reset returns to its seed, so a reset
+plant re-anchors exactly on its own clock's step 0.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from .core import (
     change_reset,
     dual_dim,
     initial_cert,
+    initial_kkt_inv,
     make_control_solver,
     make_estimator_update,
 )
@@ -66,7 +68,7 @@ class ControllerState(NamedTuple):
     have_prev: Tensor  # (B,) bool: a (z_prev, u_prev, z) pair exists
     res_ema: Tensor  # (B,) change-detection residual average
     cert: Any  # the last certificate (P, K, gamma) that passed, or ()
-    kkt_inv: Any = ()  # the carried KKT inverse: ROADMAP L3, always ()
+    kkt_inv: Any = ()  # (B, N*m, N*m) the carried KKT inverse, or ()
 
 
 def make_step_fn(dictionary: Dictionary, cfg: EngineConfig, ref_fn: RefFn,
@@ -94,7 +96,7 @@ def make_step_fn(dictionary: Dictionary, cfg: EngineConfig, ref_fn: RefFn,
             model = _select(use, model_new, model)
             res_ema = torch.where(use, res_ema_new, res_ema)
         dec = solve(params, model, z, state.u_prev, state.warm_x,
-                    state.warm_y, step, state.cert, x)
+                    state.warm_y, step, state.cert, x, state.kkt_inv)
         new_state = ControllerState(
             model=model,
             rls=rls,
@@ -106,7 +108,7 @@ def make_step_fn(dictionary: Dictionary, cfg: EngineConfig, ref_fn: RefFn,
             have_prev=torch.ones_like(state.have_prev),
             res_ema=res_ema,
             cert=dec.cert,
-            kkt_inv=state.kkt_inv,
+            kkt_inv=dec.kkt_inv,
         )
         return new_state, dec.u_applied
 
@@ -136,6 +138,7 @@ def initial_state(dictionary: Dictionary, cfg: EngineConfig,
         res_ema=zeros(),
         cert=initial_cert(cfg, params, dictionary.nlift, m, batch, dtype,
                           dev),
+        kkt_inv=initial_kkt_inv(cfg, m, batch, dtype, dev),
     )
 
 

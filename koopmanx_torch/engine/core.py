@@ -12,7 +12,10 @@ applied-input window folded into the first decision block's bounds
 (``state_bounds``, :540-556), which send the step to the
 general-inequality ADMM (``solve_qp``, :668-676); on the box path the
 output-space (low-rank) KKT inverse for py < m on the plain route
-(:596-666); the dither probe and the du accumulator (:686-704); the
+(:596-666), or the carried Newton-Schulz KKT inverse (``qp_kkt_refine``,
+:612-632) re-anchored exactly every ``qp_kkt_reanchor`` steps, and the
+bf16 KKT inverse (``qp_kkt_bf16``, through ``qp_config``); the dither
+probe and the du accumulator (:686-704); the
 closed-loop LQR controller (``controller='lqr'``, :732-845, no QP and no
 kernel); ``dual_dim`` (:854-864); the drift norms (``_matnorm``, :312-315);
 every branch of ``make_estimator_update``
@@ -25,8 +28,6 @@ for a serving fleet whose episode clocks differ, a ``(B,)`` int64 tensor
 of per-plant steps (JAX ``vmap``-ed the index per plant): the reference
 windows and the dither are then per plant, and the refit and anchor
 schedules per-plant selects, computed only where some plant is due.
-Options of paths not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from ..control.condensed import (
 from ..control.qp import (
     ADMMConfig,
     _effective_rho,
+    box_kkt,
     make_box_qp_solver,
     solve_qp,
 )
@@ -72,7 +74,7 @@ from ..edmd.windowed import (
     window_update_carry,
 )
 from ..lifts.base import Dictionary
-from ..ops.linalg import spd_inverse
+from ..ops.linalg import ns_tracking_inverse, spd_inverse
 from ..types import LinearModel, QPSolution, model_from_rls
 from .ref import Step
 
@@ -125,7 +127,8 @@ class EngineConfig:
     qp_kkt_bf16: bool = False
     qp_kkt_block: int = 4
     qp_kkt_lowrank: bool = True
-    qp_kkt_refine: int = 0
+    qp_kkt_refine: int = 0  # > 0: Newton-Schulz steps of the carried inverse
+    qp_kkt_reanchor: int = 16  # its exact re-anchor period
     reset_mult: float = 0.0
     reset_factor: float = 1e-3
     residual_ema: float = 0.98
@@ -160,6 +163,7 @@ class EngineConfig:
             sigma=self.qp_sigma,
             alpha=self.qp_alpha,
             kkt_block=self.qp_kkt_block,
+            kkt_bf16=self.qp_kkt_bf16,
         )
 
 
@@ -167,17 +171,7 @@ UPDATE_MODES = ("rls", "rls_chol", "rls_sqrt", "windowed", "storage", "off")
 
 
 def check_supported(cfg: EngineConfig) -> None:
-    """Refuse the options whose paths the port has not reached yet."""
-    todo = [
-        (cfg.qp_kkt_refine > 0, "qp_kkt_refine (carried KKT inverse)",
-         "L3"),
-        (cfg.qp_kkt_bf16, "qp_kkt_bf16", "L3"),
-    ]
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue A, {item})"
-            )
+    """Refuse unknown option values."""
     if cfg.controller not in ("mpc", "lqr"):
         raise ValueError(f"unknown controller {cfg.controller!r}")
     if cfg.terminal_mode not in ("dare", "lmi"):
@@ -274,6 +268,9 @@ class ControlDecision(NamedTuple):
     ref_full: Optional[Tensor] = None  # (B, n) the state-space anchor
     terminal: Optional[Tensor] = None  # (B, py, py) the injected block
     c_for_term: Optional[Tensor] = None  # output map of the injection
+    # the carried KKT inverse (B, N*m, N*m) under qp_kkt_refine, before
+    # any bf16 rounding; the caller's own () otherwise
+    kkt_inv: Any = ()
 
 
 def initial_cert(cfg: EngineConfig, params: MPCParams, nlift: int, m: int,
@@ -289,6 +286,38 @@ def initial_cert(cfg: EngineConfig, params: MPCParams, nlift: int, m: int,
     return (p_seed.to(dtype).expand(batch, nlift, nlift),
             torch.zeros((batch, m, nlift), **kw),
             torch.ones((batch,), **kw))
+
+
+def initial_kkt_inv(cfg: EngineConfig, m: int, batch: int, dtype,
+                    device) -> Any:
+    """The carried KKT inverse's seed (``core.py:867-874``): zeros, never
+    read, since step 0 re-anchors; ``()`` when ``qp_kkt_refine`` is 0."""
+    if cfg.qp_kkt_refine <= 0:
+        return ()
+    n_dec = cfg.horizon * m
+    return torch.zeros((batch, n_dec, n_dec), dtype=dtype, device=device)
+
+
+def carried_kkt_inverse(cfg: EngineConfig, kkt: Tensor, kkt_prev: Tensor,
+                        step: Step) -> Tensor:
+    """The inverse of the box KKT matrices ``kkt`` under ``qp_kkt_refine``
+    (``core.py:612-632``): exact (``spd_inverse`` at ``qp_kkt_block``) at
+    the steps ``step % qp_kkt_reanchor == 0``, else ``qp_kkt_refine``
+    Newton-Schulz steps from last step's ``kkt_prev``. An int step is a
+    branch: only one of the two runs, as JAX's ``lax.cond``. Per-plant
+    steps (B,), best on the host, are JAX's cond under ``vmap``, a select
+    of both per plant: each runs only where some plant takes it."""
+    exact = lambda: spd_inverse(kkt, block=cfg.qp_kkt_block)
+    tracked = lambda: ns_tracking_inverse(kkt, kkt_prev, cfg.qp_kkt_refine)
+    if not isinstance(step, Tensor):
+        return exact() if step % cfg.qp_kkt_reanchor == 0 else tracked()
+    due = step % cfg.qp_kkt_reanchor == 0
+    if bool(due.all()):
+        return exact()
+    if not bool(due.any()):
+        return tracked()
+    return torch.where(host_to(due, kkt.device)[:, None, None], exact(),
+                       tracked())
 
 
 def lowrank_kkt_inverse(f2: Tensor, p: Tensor, q_block: Tensor,
@@ -351,6 +380,11 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
     (or the general-inequality ADMM when rows are added), projection, the
     du accumulator (``Tank_System.m:192``) and the warm shift."""
     check_supported(cfg)
+    if cfg.qp_kkt_refine > 0 and cfg.qp_backend == "pallas":
+        raise ValueError(
+            "qp_kkt_refine (carried KKT inverse) requires qp_backend='xla' "
+            "(the Pallas kernel computes its own inverses)"
+        )
     if cfg.controller == "lqr":
         return _make_lqr_solver(cfg, ref_fn, m)
     if cfg.terminal_synthesis and dictionary is None:
@@ -408,10 +442,13 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
 
     def control_solve(params: MPCParams, model: LinearModel, z: Tensor,
                       u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: Step,
-                      cert: Any = (), x: Optional[Tensor] = None
-                      ) -> ControlDecision:
+                      cert: Any = (), x: Optional[Tensor] = None,
+                      kkt_prev: Any = ()) -> ControlDecision:
         """``cert`` and the plant state ``x`` are read under terminal
-        synthesis only."""
+        synthesis only; ``kkt_prev``, last step's KKT inverse, under
+        ``qp_kkt_refine`` only: a caller that threads none (``()``, as the
+        local-linear loop) gets the exact inverse every step."""
+        host_step = step
         step = host_to(step, z.device)
         revise2 = {}
         terminal = params.terminal
@@ -473,7 +510,15 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             lo0 = torch.minimum(lo0, hi0)
             lo = torch.cat([lo0, lo[..., m:]], dim=-1)
             hi = torch.cat([hi0, hi[..., m:]], dim=-1)
+        new_kkt = kkt_prev
         if a_rows:
+            if cfg.qp_kkt_refine > 0:
+                raise ValueError(
+                    "qp_kkt_refine > 0 requires the box-only QP fast path; "
+                    "this config adds general inequality rows (delta_u "
+                    "applied bounds or state_bounds) which use solve_qp's "
+                    "own KKT — set qp_kkt_refine=0 for this configuration"
+                )
             # the general-inequality ADMM, on every route (the kernel
             # serves the box path only, as in the JAX package); A keeps a
             # batch axis only where a block has one
@@ -492,7 +537,13 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else zeros_x
             y0 = warm_y if cfg.qp_warm_start == "full" else zeros_x
             n_out = pred.f2.shape[-2]  # N*py
-            if (cfg.qp_kkt_lowrank and cfg.qp_kkt_refine == 0
+            if cfg.qp_kkt_refine > 0 and not isinstance(kkt_prev, tuple):
+                # the carried inverse (plain route only); what is carried
+                # is the inverse before the solver's bf16 rounding
+                new_kkt = carried_kkt_inverse(cfg, box_kkt(qp.P, qp_cfg),
+                                              kkt_prev, host_step)
+                sol = box_solver(qp.P, qp.q, qp.l, qp.u, x0, y0, new_kkt)
+            elif (cfg.qp_kkt_lowrank and cfg.qp_kkt_refine == 0
                     and cfg.qp_backend == "xla"
                     and terminal is None
                     and n_out < horizon * m):
@@ -522,7 +573,8 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             nan=0.0, posinf=0.0, neginf=0.0,
         )
         return ControlDecision(u_applied=u_applied, warm_x=warm_next,
-                               sol=sol, r_window=r_window, **revise2)
+                               sol=sol, r_window=r_window, kkt_inv=new_kkt,
+                               **revise2)
 
     return control_solve
 
@@ -569,8 +621,8 @@ def _make_lqr_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
 
     def control_solve(params: MPCParams, model: LinearModel, z: Tensor,
                       u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: Step,
-                      cert: Any = (), x: Optional[Tensor] = None
-                      ) -> ControlDecision:
+                      cert: Any = (), x: Optional[Tensor] = None,
+                      kkt_prev: Any = ()) -> ControlDecision:
         step = host_to(step, z.device)
         a, b = model.A, model.B
         nlift, batch = a.shape[-1], z.shape[:-1]
@@ -625,7 +677,7 @@ def _make_lqr_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             dual_res=torch.zeros(batch, **kw), iterations=0)
         return ControlDecision(u_applied=u_applied,
                                warm_x=torch.zeros_like(warm_x), sol=sol,
-                               r_window=r_window, cert=cert)
+                               r_window=r_window, cert=cert, kkt_inv=kkt_prev)
 
     return control_solve
 

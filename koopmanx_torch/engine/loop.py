@@ -28,6 +28,7 @@ from .core import (
     change_reset,
     dual_dim,
     initial_cert,
+    initial_kkt_inv,
     make_control_solver,
     make_estimator_update,
 )
@@ -47,6 +48,8 @@ class LoopCarry(NamedTuple):
     # the last certificate (P, K, gamma) that passed the guard, per
     # scenario, under terminal synthesis; () otherwise
     cert: Any = ()
+    # the carried KKT inverse (B, N*m, N*m) under qp_kkt_refine, else ()
+    kkt_inv: Any = ()
 
 
 class StepLog(NamedTuple):
@@ -148,7 +151,7 @@ def make_closed_loop(system: System, dictionary: Dictionary,
         x, model = carry.x, carry.model
         z = dictionary(x)
         dec = control_solve(params, model, z, carry.u_applied, carry.warm_x,
-                            carry.warm_y, step, carry.cert, x)
+                            carry.warm_y, step, carry.cert, x, carry.kkt_inv)
         u_applied = dec.u_applied
 
         x_next = plant_step(x, u_applied, theta_sched(step))
@@ -179,6 +182,7 @@ def make_closed_loop(system: System, dictionary: Dictionary,
             warm_y=dec.sol.y if cfg.qp_warm_start == "full" else carry.warm_y,
             res_ema=res_ema,
             cert=dec.cert,
+            kkt_inv=dec.kkt_inv,
         )
         log = dict(
             x=x,
@@ -212,6 +216,7 @@ def make_closed_loop(system: System, dictionary: Dictionary,
             res_ema=torch.zeros((batch,), dtype=dtype, device=dev),
             cert=initial_cert(cfg, params, dictionary.nlift, m, batch,
                               dtype, dev),
+            kkt_inv=initial_kkt_inv(cfg, m, batch, dtype, dev),
         )
 
     def closed_loop(params: MPCParams, x0: Tensor, model0: LinearModel,

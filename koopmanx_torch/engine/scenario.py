@@ -1,4 +1,4 @@
-"""Scenario batches (counterpart of ``koopmanx/engine/scenario.py:26-65``).
+"""Scenario batches (counterpart of ``koopmanx/engine/scenario.py:26-81``).
 
 A scenario is an initial state and per-scenario plant parameters before
 and after the switch. Draws come from an explicit CPU ``torch.Generator``
@@ -50,3 +50,19 @@ def sample_scenarios(
     move = lambda th: type(th)(*(v.to(dev) for v in th))
     return ScenarioBatch(x0=x0.to(dev), theta0=move(theta0),
                          theta1=move(theta1))
+
+
+def replicate_scenario(x0, theta0: Any, theta1: Any, batch: int,
+                       dtype: torch.dtype = torch.float32,
+                       device: DeviceLike = None) -> ScenarioBatch:
+    """One scenario tiled to a batch of ``batch`` (for throughput runs of
+    one config at scale), every leaf cast to ``dtype`` on ``device``
+    (None means CUDA)."""
+    dev = resolve_device(device)
+
+    def rep(v):
+        v = torch.as_tensor(v, dtype=dtype, device=dev)
+        return v.expand((batch,) + v.shape)
+
+    return ScenarioBatch(x0=rep(x0), theta0=type(theta0)(*map(rep, theta0)),
+                         theta1=type(theta1)(*map(rep, theta1)))

@@ -18,21 +18,34 @@ from torch import Tensor, nn
 
 class Dictionary(nn.Module):
     """psi(x) = encoder(x), or (encoder(x) - mu) / sc when normalized.
-    Maps (..., n) -> (..., nlift)."""
+    Maps (..., n) -> (..., nlift); ``decoder``, where given, maps back
+    (:meth:`decode`, ``lifts/base.py:43-50``)."""
 
     def __init__(self, encoder: nn.Module, nlift: int, n: int,
                  mean: Optional[Tensor] = None,
-                 scale: Optional[Tensor] = None):
+                 scale: Optional[Tensor] = None,
+                 decoder: Optional[nn.Module] = None):
         super().__init__()
         self.encoder = encoder
         self.nlift = nlift
         self.n = n
         self.register_buffer("mu", mean)
         self.register_buffer("sc", scale)
+        self.decoder = decoder
 
     @property
     def is_normalized(self) -> bool:
         return self.mu is not None
+
+    @property
+    def has_decoder(self) -> bool:
+        return self.decoder is not None
+
+    def decode(self, z: Tensor) -> Tensor:
+        """The decoder on a lifted state (..., nlift) -> (..., n)."""
+        if self.decoder is None:
+            raise ValueError("this dictionary has no decoder")
+        return self.decoder(z)
 
     def forward(self, x: Tensor) -> Tensor:
         z = self.encoder(x)
@@ -99,10 +112,12 @@ def state_augmented(inner: Dictionary) -> Dictionary:
 
 def normalized(inner: Dictionary, mean: Tensor, scale: Tensor) -> Dictionary:
     """psi'(x) = (psi(x) - mean) / scale: lifted-feature standardization,
-    which keeps the square-root RLS accurate in float32."""
+    which keeps the square-root RLS accurate in float32; a decoder stays
+    as it was."""
     if inner.is_normalized:
         raise ValueError("dictionary is already normalized")
-    return Dictionary(inner.encoder, inner.nlift, inner.n, mean, scale)
+    return Dictionary(inner.encoder, inner.nlift, inner.n, mean, scale,
+                      decoder=inner.decoder)
 
 
 def fit_normalizer(inner: Dictionary, x_samples: Tensor, eps: float = 1e-6

@@ -1,4 +1,6 @@
-"""MLP encoder lift (counterpart of ``koopmanx/lifts/mlp.py:28-56``).
+"""MLP encoder lift (counterpart of ``koopmanx/lifts/mlp.py:28-78``:
+the MLP, its He init, the encoder lift and the autoencoder lift with the
+reference's sizes).
 
 ReLU between layers, linear final layer; weights in the ``(out, in)``
 convention of the JAX package and the reference's ``.mat`` exports, which
@@ -58,3 +60,18 @@ def mlp_init(gen: torch.Generator, sizes: Sequence[int],
 
 def encoder_dictionary(mlp: MLP, n: int) -> Dictionary:
     return Dictionary(mlp, nlift=mlp.layers[-1].out_features, n=n)
+
+
+def autoencoder_dictionary(encoder: MLP, decoder: MLP, n: int) -> Dictionary:
+    """The encoder lift with the decoder attached
+    (``Dictionary.decode``)."""
+    return Dictionary(encoder, nlift=encoder.layers[-1].out_features, n=n,
+                      decoder=decoder)
+
+
+def reference_autoencoder_sizes(n: int = 2, nlift: int = 8, hidden: int = 100):
+    """The reference autoencoder's layer widths (``duffing.py:21-38``):
+    (encoder, decoder)."""
+    enc = (n, hidden, hidden, hidden, nlift)
+    dec = (nlift, hidden, hidden, hidden, n)
+    return enc, dec

@@ -3,10 +3,11 @@
 
 ``spd_inverse`` is the pivot-free Gauss-Jordan inverse of a symmetric
 positive-definite matrix that the engine applies to the ADMM KKT matrix
-every step; ``gj_inverse`` / ``gj_solve`` are Gauss-Jordan with partial
-pivoting for the general matrices of the doubling DARE
-(``control/dare.py``). Both run as plain batched PyTorch ops on (B, n, n)
-tensors.
+every step; ``ns_tracking_inverse`` (``:144-211``) refines last step's
+inverse of that matrix instead, under ``qp_kkt_refine``;
+``gj_inverse`` / ``gj_solve`` are Gauss-Jordan with partial pivoting for
+the general matrices of the doubling DARE (``control/dare.py``). All run
+as plain batched PyTorch ops on (B, n, n) tensors.
 """
 from __future__ import annotations
 
@@ -109,6 +110,40 @@ def gj_inverse(a: Tensor) -> Tensor:
 def gj_solve(a: Tensor, b: Tensor) -> Tensor:
     """``a x = b`` as ``gj_inverse(a) @ b`` (``ops/linalg.py:134-141``)."""
     return gj_inverse(a) @ b
+
+
+def ns_tracking_inverse(k: Tensor, x_prev: Tensor, iters: int,
+                        safe_thresh: float = 0.95,
+                        cold_iters: int = 12) -> Tensor:
+    """Newton-Schulz TRACKING inverse of slowly drifting SPD matrices,
+    (..., n, n) -> (..., n, n) (``koopmanx/ops/linalg.py:144-211``):
+    ``iters`` steps X <- X (2I - K X) from last step's inverse
+    ``x_prev``, then symmetrized.
+
+    Per matrix, branch-free: the carry is kept where its residual
+    R = I - K X demonstrably contracts under one step (which squares it
+    exactly): ``isfinite(e1) & ((e0 < safe_thresh) | (e1 < 0.7 e0))``
+    with e0 = ||R||_F and e1 = ||R^2||_F; elsewhere the cold seed
+    I / ||K||_F, polished by ``cold_iters`` steps, replaces it (a stale
+    carry with spectral radius past 1, or NaN). The cold chain is computed
+    for every matrix on every call, as in the JAX package. It constructs
+    an inverse, so it runs in the caller's full precision (the entry
+    points pin TF32 off)."""
+    n = k.shape[-1]
+    eye = torch.eye(n, dtype=k.dtype, device=k.device)
+    fro = lambda m: torch.sqrt((m * m).sum((-2, -1)))
+    k_fro = torch.clamp(fro(k), min=1e-30)
+    r_prev = eye - k @ x_prev
+    e0 = fro(r_prev)
+    e1 = fro(r_prev @ r_prev)  # the residual after one step, exactly
+    use_prev = torch.isfinite(e1) & ((e0 < safe_thresh) | (e1 < 0.7 * e0))
+    x_cold = eye / k_fro[..., None, None]
+    for _ in range(cold_iters):
+        x_cold = x_cold @ (2.0 * eye - k @ x_cold)
+    x = torch.where(use_prev[..., None, None], x_prev, x_cold)
+    for _ in range(iters):
+        x = x @ (2.0 * eye - k @ x)
+    return 0.5 * (x + x.transpose(-1, -2))
 
 
 def cholesky(a: Tensor) -> Tensor:

@@ -1,8 +1,8 @@
 """RunConfig -> pipeline -> closed-loop results (counterpart of
-``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp, with the ``.mat``
-weights and their fallback; rbf with random or k-means centers; random
-Fourier features; the identity, Hermite and monomial lifts), ``_mpc_params``
-:132-203 (lifted tracking included), ``engine_config`` :206-251, ``_ref_fn``
+``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp, with the
+``.mat`` or ``.pkl`` weights and their fallback; rbf with random or
+k-means centers; random Fourier features; the identity, Hermite and
+monomial lifts), ``_mpc_params`` :132-203 (lifted tracking included), ``engine_config`` :206-251, ``_ref_fn``
 :254-280 and ``build_pipeline`` :282-412, with every estimator's initial
 state: the windowed estimator's prefilled ring, compressed or not, and the
 Woodbury lane's carried statistics; the storage method's training Grams; the
@@ -46,7 +46,7 @@ from .lifts.base import (
     zero_offset,
 )
 from .lifts.fourier import fourier_dictionary, rff_init
-from .lifts.io import load_mat_mlp
+from .lifts.io import load_mat_mlp, load_torch_autoencoder
 from .lifts.mlp import MLP, encoder_dictionary, mlp_init
 from .lifts.poly import hermite_dictionary, monomial_dictionary
 from .lifts.rbf import kmeans, rbf_dictionary
@@ -86,13 +86,27 @@ def resolve_weights_path(path: Optional[str], system: str) -> Optional[str]:
     return alt if os.path.exists(alt) else None
 
 
+def load_mlp_weights(path: str, dtype: torch.dtype):
+    """An MLP lift's weights ``[(W (out, in), b (out,)), ...]`` from a
+    ``.mat`` file or, for a ``.pkl``, the encoder of a torch checkpoint
+    (``lifts.io.load_torch_autoencoder``); None for any other suffix,
+    where the JAX package falls back to a random init
+    (``koopmanx/run.py:76-82``)."""
+    if path.endswith(".mat"):
+        return load_mat_mlp(path, dtype)
+    if path.endswith(".pkl"):
+        return load_torch_autoencoder(path, dtype)[0]
+    return None
+
+
 def build_dictionary(cfg: C.RunConfig, data: Snapshots,
                      gen: torch.Generator) -> Dictionary:
-    """The lift: an MLP (its ``.mat`` weights, or a random He init from
-    ``gen``), thinplate-family RBFs with k-means centers over the training
-    states or centers ~ U[0, 1)^n, or random Fourier features whose
-    bandwidth is in units of the training states' std (ddof 0, floored at
-    1e-3), all drawn from ``gen``; or psi(x) = x, the tensor-product
+    """The lift: an MLP (its ``.mat`` weights or a ``.pkl`` checkpoint's
+    encoder, or a random He init from ``gen``), thinplate-family RBFs
+    with k-means centers over the training states or centers
+    ~ U[0, 1)^n, or random Fourier features whose bandwidth is in units
+    of the training states' std (ddof 0, floored at 1e-3), all drawn
+    from ``gen``; or psi(x) = x, the tensor-product
     Hermite lift of degree 4 (nlift 25) or the five monomials (the last
     two over 2-D states); then ``zero_offset``,
     ``state_augmented`` (the two together are [x; g(x) - g(0)]); then
@@ -104,14 +118,9 @@ def build_dictionary(cfg: C.RunConfig, data: Snapshots,
         d = identity_dictionary(system.n)
     elif lc.kind == "mlp":
         path = resolve_weights_path(lc.weights_path, system.name)
-        if path is not None and not path.endswith(".mat"):
-            raise NotImplementedError(
-                f"weights {path!r}: the port reads .mat files only (the "
-                "JAX package's .pkl importer serves the reference's own "
-                "checkpoints)")
-        if path is not None:
-            d = encoder_dictionary(MLP.from_params(load_mat_mlp(path, dtype)),
-                                   n=system.n)
+        weights = None if path is None else load_mlp_weights(path, dtype)
+        if weights is not None:
+            d = encoder_dictionary(MLP.from_params(weights), n=system.n)
         else:
             sizes = (system.n,) + (lc.hidden,) * 3 + (lc.nlift,)
             d = encoder_dictionary(mlp_init(gen, sizes, dtype=dtype),
@@ -243,6 +252,7 @@ def engine_config(cfg: C.RunConfig) -> EngineConfig:
         qp_kkt_lowrank=mc.qp_kkt_lowrank,
         qp_kkt_bf16=mc.qp_kkt_bf16,
         qp_kkt_refine=mc.qp_kkt_refine,
+        qp_kkt_reanchor=mc.qp_kkt_reanchor,
         qp_backend=mc.qp_backend,
         terminal_synthesis=mc.terminal_synthesis,
         terminal_mode=mc.terminal_mode,

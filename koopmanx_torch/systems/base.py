@@ -50,6 +50,17 @@ def make_switch_schedule(theta0: Any, theta1: Any, switch_step: int):
     return schedule
 
 
+def make_constant_schedule(theta: Any):
+    """``theta(step) = theta`` for every step: a plant that never
+    switches (``systems/base.py:72-77``)."""
+
+    def schedule(step: int) -> Any:
+        del step
+        return theta
+
+    return schedule
+
+
 def rk4_step(f: VectorField, h: float) -> StepMap:
     """Classic RK4, k4 evaluated at ``x + h*k3`` (``systems/base.py:80-92``)."""
 

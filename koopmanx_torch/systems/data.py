@@ -1,5 +1,6 @@
 """Data collection: batched random-excitation rollouts (counterpart of
-``koopmanx/systems/data.py:55-98``).
+``koopmanx/systems/data.py:55-109``), and the reference's column-major
+snapshot layout.
 
 Snapshots are row-major ``(S, n)`` in trajectory-major order, as in the
 JAX package. Random draws come from an explicit ``torch.Generator`` on the
@@ -70,3 +71,13 @@ def collect(
         y=ys.reshape(-1, system.n),
         u=u_seq.reshape(-1, system.m),
     )
+
+
+def from_reference_layout(x, y, u) -> Snapshots:
+    """Reference-style column-major snapshot matrices X, Y (n, S) and U
+    (m, S) or (S,) as row-major :class:`Snapshots` (for fixtures written
+    by the reference's own scripts)."""
+    t = lambda a: torch.as_tensor(a)
+    u = t(u)
+    return Snapshots(x=t(x).T, y=t(y).T,
+                     u=(u[None] if u.dim() == 1 else u).T)

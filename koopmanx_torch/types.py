@@ -1,4 +1,5 @@
-"""Core types (counterpart of ``koopmanx/types.py:24-130``).
+"""Core types (counterpart of ``koopmanx/types.py:24-130``, with
+``ClosedLoopLog`` at :99-113).
 
 Every leaf is a ``torch.Tensor`` with a leading scenario axis where the
 engine batches (JAX batched the same types with ``vmap``).
@@ -61,6 +62,21 @@ class QPSolution(NamedTuple):
     primal_res: Tensor
     dual_res: Tensor
     iterations: int
+
+
+class ClosedLoopLog(NamedTuple):
+    """Per-step outputs of one closed loop, stacked over time: the
+    quantities the reference logs per step (``duffing.py:985-990``, the
+    drift norms; ``Revise_2/Koopman_update.m:253``, the residual). The
+    engine's ``StepLog`` holds these and more."""
+
+    x: Tensor  # plant state (T, n)
+    u: Tensor  # applied input (T, m)
+    r: Tensor  # reference head (T, p)
+    drift_a: Tensor  # ||A_k+1 - A_k||_F (T,)
+    drift_b: Tensor
+    drift_c: Tensor
+    residual: Tensor  # ||z+ - (A z + B u)||, the one-step lifted residual
 
 
 def model_from_rls(state: RLSState, nlift: int) -> LinearModel:

@@ -3,8 +3,8 @@ Sherman-Morrison RLS (``update='rls'``), the storage method and the
 Gram-carry RLS (``'rls_chol'``) with both model extractions, the ridge of
 ``spd_inverse``, ``change_reset`` on the Gram carry, the round trip of
 every estimator state through ``convert``, the batched closed loop under
-each mode against JAX ``run_batch``, and the options that later items
-still refuse. float64 on the CPU; inputs from numpy with a seed."""
+each mode against JAX ``run_batch``, and the options of later items,
+which build. float64 on the CPU; inputs from numpy with a seed."""
 import dataclasses
 
 import numpy as np
@@ -383,27 +383,29 @@ def test_convert_refuses_an_unknown_estimator_state(flagship_arrays):
         pipeline_from_numpy(arrays, tcfg, device="cpu", dtype=F64)
 
 
-@pytest.mark.parametrize("change,match", [
-    (lambda c: setattr(c.mpc, "controller", "lqr"), None),
-    (lambda c: (setattr(c.mpc, "terminal_synthesis", True),
-                setattr(c.mpc, "terminal_mode", "lmi")), None),
-    (lambda c: setattr(c.mpc, "qp_kkt_refine", 2), "L3"),
+@pytest.mark.parametrize("change", [
+    lambda c: setattr(c.mpc, "controller", "lqr"),
+    lambda c: (setattr(c.mpc, "terminal_synthesis", True),
+               setattr(c.mpc, "terminal_mode", "lmi")),
+    lambda c: (setattr(c.mpc, "qp_kkt_refine", 2),
+               setattr(c.mpc, "qp_kkt_reanchor", 8),
+               setattr(c.mpc, "qp_kkt_bf16", True)),
 ], ids=["lqr", "terminal_synthesis", "qp_kkt_refine"])
-def test_later_items_stay_refused(change, match):
-    """The carried KKT inverse is not ported yet: ``engine_config`` raises
-    naming its ROADMAP item (L3), on the VDP preset as on any other. The
-    LQR controller (item 15) and terminal synthesis in its LMI mode (item
-    14b) are ported: on the same preset their engine configs build
-    (tests/test_torch_lqr.py, tests/test_torch_lmi.py)."""
+def test_later_items_stay_refused(change):
+    """Options of later items build on the VDP preset as on any other:
+    the LQR controller (item 15), terminal synthesis in its LMI mode (item
+    14b), and the carried and bf16 KKT inverses (L3), each carried into
+    the engine config (tests/test_torch_lqr.py, tests/test_torch_lmi.py,
+    tests/test_torch_kkt_refine.py)."""
     cfg = TC.vdp_lifted_preset()
     change(cfg)
-    if match is None:
-        ecfg = engine_config(cfg)
-        assert (ecfg.controller, ecfg.terminal_mode) == (
-            cfg.mpc.controller, cfg.mpc.terminal_mode)
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        engine_config(cfg)
+    ecfg = engine_config(cfg)
+    mc = cfg.mpc
+    assert (ecfg.controller, ecfg.terminal_mode, ecfg.qp_kkt_refine,
+            ecfg.qp_kkt_reanchor, ecfg.qp_kkt_bf16) == (
+        mc.controller, mc.terminal_mode, mc.qp_kkt_refine,
+        mc.qp_kkt_reanchor, mc.qp_kkt_bf16)
+    assert ecfg.qp_config.kkt_bf16 == mc.qp_kkt_bf16
 
 
 def test_unknown_update_mode_is_refused():
