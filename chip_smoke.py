@@ -291,14 +291,34 @@ Phases, each of which fails the run on error:
    (e) a float64 ``BatchedController`` of 256 plants with the carried
    inverse, the even plants reset at call 20 of 40: 4 sampled plants
    against single Controllers (1e-9) and int-path twins (1e-12), as in
-   phase 16.
+   phase 16;
+20. several cards on the one card (``koopmanx_torch/parallel``): (a)
+   ``make_mesh()`` at world size 1 through NCCL, phase 3's pipeline and
+   scenarios through ``sharded_closed_loop(pipe.closed_loop, mesh,
+   *shard_batch(...))``: 200 launches, x and u bit for bit phase 3's,
+   ms/step beside phase 5's; ``distributed_edmd_fit`` on the flagship's
+   50 x 50 data in float64 within 1e-10 of ``edmd_fit(method='solve')``;
+   ``psum_mean(arange(16)) = 7.5``; one data-parallel KMAE step at the
+   reference's width (hidden 100, 10,000 snapshots, 256 windows) bit for
+   bit the plain step; (b) two ranks sharing the card on gloo (NCCL
+   refuses two ranks on one GPU), each this script with
+   ``--two-rank-worker`` and 4096 scenarios on the card: the float64
+   flagship loop over 16 steps gathered against the whole batch, each
+   scenario and step within 1e-8 or ten times the whole batch's own
+   divergence from one ulp of x0, the distributed fit and ``psum_mean``
+   on CUDA tensors; a rank that fails fails the phase; (c)
+   ``eval/plots.py::eigenfunction_grid`` on the card (the flagship's
+   dictionary in float64, phase 3's end-state model) against the CPU
+   within 1e-10 of max(1, |phi|). The rest of ``eval/plots.py`` draws
+   with matplotlib, which the card's machine lacks: it is held to the JAX
+   package's in ``tests/test_torch_plots.py`` only.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
 line, a serving JSON line (phase 16's latencies), a control-laws JSON
 line (phase 17), a training JSON line (phase 18), a phase 19 JSON line,
-the card line
+a phase 20 JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -530,6 +550,18 @@ REFINE_MSE_RTOL, REFINE_SSE_FLOOR = 5e-3, 5e-3
 HIL_RUNS = (("pendulum", 400, 0), ("tank", 300, BATCH))
 HIL_SSE_MAX, NATIVE_RTOL = 0.05, 1e-12
 SERVE_REFINE = {"batch": 256, "calls": 40, "reset_at": 20}
+# phase 20: several cards on one. (a) world size 1 through NCCL: phase 3's
+# loop through sharded_closed_loop (the same program on the same batch:
+# x and u bit for bit), the distributed fit on the flagship's 50 x 50
+# float64 data within FIT_TOL of edmd_fit(method='solve') (the JAX
+# package's own bound, tests/test_parallel.py:40), psum_mean, one
+# data-parallel KMAE step at the reference's width bit for bit the plain
+# step. (b) two ranks sharing the card on gloo, 4096 scenarios each, the
+# float64 loop over LOOP_EARLY_STEPS gathered against the whole batch to
+# EARLY_TOL or ten times its one-ulp-of-x0 floor (phase 13's gate); each
+# rank within TWO_RANK_TIMEOUT seconds. (c) eigenfunction_grid on the card
+# against the CPU in float64, within EIGFUN_TOL of max(1, |phi|)
+FIT_TOL, TWO_RANK_TIMEOUT, EIGFUN_TOL = 1e-10, 300, 1e-10
 
 
 def fail(msg: str) -> None:
@@ -3657,11 +3689,285 @@ def phase_l3_pkl_hil(device, card: str, flagship, log8, run8):
     return counts, report
 
 
+def flagship_pipeline_f64(device, steps: int = LOOP_EARLY_STEPS):
+    """The flagship's loop (kernel route) in float64 over ``steps`` at
+    BATCH scenarios, as a ``config_loop`` thunk."""
+    from koopmanx_torch.configs import flagship_config
+
+    return config_loop(flagship_config(steps=steps, horizon=HORIZON,
+                                       qp_backend="pallas"),
+                       device, "float64")
+
+
+def max_gap(a, b) -> float:
+    return max(float((p - q).abs().max()) for p, q in zip(a, b))
+
+
+def phase_mesh_one(device, card: str, run_kernel, log_k, fused_ms: float):
+    """Phase 20 (a): world size 1 through NCCL at the flagship's width:
+    ``make_mesh()``, phase 3's pipeline and scenarios through
+    ``sharded_closed_loop`` (STEPS launches; x and u bit for bit phase
+    3's), the distributed fit on the flagship's 50 x 50 data in float64
+    against ``edmd_fit(method='solve')``, ``psum_mean``, and one
+    data-parallel KMAE step at the reference's width against the plain
+    step, bit for bit. Returns the launches and the report."""
+    import torch
+    import torch.distributed as dist
+    from koopmanx_torch.convert import kmae_leaves, kmae_state_to_numpy
+    from koopmanx_torch.edmd.batch import edmd_fit
+    from koopmanx_torch.parallel import (
+        distributed_edmd_fit,
+        make_mesh,
+        psum_mean,
+        shard_batch,
+        sharded_closed_loop,
+    )
+    from koopmanx_torch.train.kmae import KMAEConfig, init_state, make_train_step
+
+    mesh = make_mesh()
+    report = {"backend": dist.get_backend(), "world": mesh.size(),
+              "card": card}
+    pipe = run_kernel.pipe
+    shards = shard_batch(loop_args(run_kernel), mesh)
+    zero_counts()
+    (carry, log), wall = timed(lambda: sharded_closed_loop(
+        pipe.closed_loop, mesh, *shards))
+    counts = read_counts()
+    report.update({"launches": counts, "ms_per_step": wall / STEPS * 1e3,
+                   "phase5_fused_loop_ms_per_step": fused_ms})
+    if counts != {"box_admm": STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+        fail(f"phase 20 (a): the sharded loop launched {counts}")
+    check_loop(carry, log, "phase 20 (a) sharded", STEPS)
+    report["x_u_equal_phase3"] = (torch.equal(log.x, log_k.x)
+                                  and torch.equal(log.u, log_k.u))
+    if not report["x_u_equal_phase3"]:
+        fail(f"phase 20 (a): the sharded loop differs from phase 3's: x "
+             f"{float((log.x - log_k.x).abs().max())}, u "
+             f"{float((log.u - log_k.u).abs().max())}")
+
+    pipe64 = flagship_pipeline_f64(device, 1).pipe
+    data = pipe64.data
+    with torch.no_grad():
+        fit = distributed_edmd_fit(pipe64.dictionary, shard_batch(data, mesh),
+                                   mesh)
+        whole = edmd_fit(pipe64.dictionary, data, method="solve")
+    report["fit"] = {"snapshots": int(data.x.shape[0]), "dtype": "float64",
+                     "max_gap": max_gap(fit, whole), "tol": FIT_TOL}
+    if not report["fit"]["max_gap"] <= FIT_TOL:
+        fail(f"phase 20 (a): distributed fit {report['fit']}")
+    mean = psum_mean(shard_batch(torch.arange(
+        16.0, dtype=torch.float64, device=device), mesh), mesh)
+    report["psum_mean_arange16"] = float(mean)
+    if float(mean) != 7.5:
+        fail(f"phase 20 (a): psum_mean(arange(16)) = {float(mean)}")
+
+    cfg = KMAEConfig()
+    (x, y, u), (xw, uw) = training_inputs(device, torch.float32)
+    idx = torch.arange(256, device=device)
+    steps = {"plain": make_train_step(cfg)[0],
+             "data-parallel": make_train_step(
+                 cfg, group=mesh.get_group("data"))[0]}
+    out = {}
+    for name, step in steps.items():
+        state = init_state(torch.Generator().manual_seed(0), cfg, 2, 8,
+                           hidden=TRAIN_HIDDEN, device=device)
+        args = (x, y, u, xw[idx], uw[idx])
+        if name != "plain":
+            args = shard_batch(args, mesh)
+        state, loss, _ = step(state, *args)
+        out[name] = (kmae_leaves(kmae_state_to_numpy(state)), float(loss))
+    equal = out["plain"][1] == out["data-parallel"][1] and all(
+        (p == q).all() for p, q in zip(out["plain"][0], out["data-parallel"][0]))
+    report["kmae_step"] = {"hidden": TRAIN_HIDDEN, "snapshots": int(x.shape[0]),
+                           "windows": int(idx.numel()),
+                           "loss": out["plain"][1], "bit_for_bit": equal}
+    if not equal:
+        fail(f"phase 20 (a): the data-parallel KMAE step differs from the "
+             f"plain step: {report['kmae_step']}")
+    dist.destroy_process_group()
+    return {"sharded flagship, world size 1 (phase 20)": counts["box_admm"]}, \
+        report
+
+
+def two_rank_worker(rank: int, port: int, out_path: str) -> int:
+    """One of phase 20 (b)'s two ranks sharing the card (gloo: NCCL
+    refuses two ranks on one GPU): its half of the float64 flagship loop
+    over LOOP_EARLY_STEPS through ``sharded_closed_loop``, the distributed
+    fit against the whole-data fit and ``psum_mean``, on CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from koopmanx_torch.edmd.batch import edmd_fit
+    from koopmanx_torch.parallel import (
+        distributed_edmd_fit,
+        initialize_multihost,
+        make_mesh,
+        psum_mean,
+        shard_batch,
+        sharded_closed_loop,
+    )
+
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh("cuda")
+    device = torch.device("cuda", torch.cuda.current_device())
+    run = flagship_pipeline_f64(device)
+    pipe = run.pipe
+    zero_counts()
+    carry, log = sharded_closed_loop(pipe.closed_loop, mesh, *shard_batch(
+        loop_args(run), mesh))
+    launches = read_counts()["box_admm"]
+    with torch.no_grad():
+        fit = distributed_edmd_fit(pipe.dictionary,
+                                   shard_batch(pipe.data, mesh), mesh)
+        whole = edmd_fit(pipe.dictionary, pipe.data, method="solve")
+    mean = psum_mean(shard_batch(torch.arange(
+        16.0, dtype=torch.float64, device=device), mesh), mesh)
+    torch.save({"x": log.x.cpu(), "u": log.u.cpu(), "launches": launches,
+                "rows": int(log.x.shape[0]), "device": str(log.x.device),
+                "backend": dist.get_backend(), "world": mesh.size(),
+                "fit_gap": max_gap(fit, whole), "psum_mean": float(mean)},
+               out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_two_ranks(device, tmp: str):
+    """Phase 20 (b): two ranks of ``two_rank_worker`` on the card, started
+    together; meanwhile the whole batch's float64 loop here and its
+    one-ulp-of-x0 floor (up, then down). The gathered shards are held per
+    scenario and step to EARLY_TOL or ten times that floor (phase 13's
+    gate), the fit to FIT_TOL, ``psum_mean`` to 7.5. A rank that fails
+    fails the phase with its error."""
+    import socket
+
+    import torch
+    from koopmanx_torch.run import run_scenarios
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(2)]
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--two-rank-worker",
+         str(r), str(port), outs[r]], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        run = flagship_pipeline_f64(device)
+        whole = run()[1].x
+        floors = [run_scenarios(run.pipe, run.batch._replace(
+            x0=torch.nextafter(run.x0, torch.full_like(run.x0, t))))[1].x
+            for t in (9.0, -9.0)]
+        for p in procs:
+            p.wait(timeout=TWO_RANK_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            fail(f"phase 20 (b): rank {r} exited {p.returncode}:\n"
+                 f"{text[-4000:]}")
+    ranks = [torch.load(o) for o in outs]
+    x = torch.cat([o["x"] for o in ranks]).to(device)
+    diff = lambda a: (a - whole).abs().amax(-1)  # (B, T)
+    floor = torch.stack([diff(f) for f in floors]).amax(0).cummax(1).values
+    bound = torch.clamp(10.0 * floor, min=EARLY_TOL)
+    dx = diff(x)
+    report = {
+        "ranks": [{k: o[k] for k in ("rows", "device", "backend", "world",
+                                     "launches", "fit_gap", "psum_mean")}
+                  for o in ranks],
+        "batch": BATCH, "steps": LOOP_EARLY_STEPS, "dtype": "float64",
+        "dx_f64": float(dx.max()), "floor_f64": float(floor.max()),
+        "tol": EARLY_TOL, "bit_for_bit": bool((dx == 0).all()),
+        "share_held_at_tol": float((bound == EARLY_TOL).double().mean()),
+        "worst_ratio_to_bound": float((dx / bound).max())}
+    if not bool((dx <= bound).all()):
+        fail(f"phase 20 (b): the two ranks' loop differs from the whole "
+             f"batch's: {report}")
+    for r, o in enumerate(ranks):
+        if (o["rows"] != BATCH // 2 or o["launches"] != LOOP_EARLY_STEPS
+                or not o["fit_gap"] <= FIT_TOL or o["psum_mean"] != 7.5
+                or o["world"] != 2 or not o["device"].startswith("cuda")):
+            fail(f"phase 20 (b): rank {r}: {report['ranks'][r]}")
+    return {"two ranks sharing the card, float64 (phase 20)":
+            sum(o["launches"] for o in ranks)}, report
+
+
+def phase_eigenfunctions(pipe, end_model, h: float):
+    """Phase 20 (c): ``eval/plots.py::eigenfunction_grid`` on the card,
+    with the flagship's dictionary in float64 and scenario 0's end-state
+    model of phase 3, against the same dictionary on the CPU (the rest of
+    ``plots`` draws with matplotlib, which the card's machine lacks)."""
+    import copy
+
+    import torch
+    from koopmanx_torch.eval.modes import spectral_decomposition
+    from koopmanx_torch.eval.plots import eigenfunction_grid
+    from koopmanx_torch.tree import tree_map
+
+    spec = spectral_decomposition(tree_map(lambda t: t[0], end_model), h)
+    d64 = copy.deepcopy(pipe.dictionary).to(torch.float64)
+    pts, phi = eigenfunction_grid(spec, d64)
+    pts_c, phi_c = eigenfunction_grid(spec, copy.deepcopy(d64).cpu())
+    scale = max(1.0, float(abs(phi_c).max()))
+    report = {"grid": list(phi.shape), "device": str(
+        next(d64.parameters()).device), "max_abs_phi": float(abs(phi_c).max()),
+        "max_gap": float(abs(phi - phi_c).max()), "tol": EIGFUN_TOL,
+        "points_equal": bool((pts == pts_c).all())}
+    if not (report["points_equal"]
+            and report["max_gap"] <= EIGFUN_TOL * scale):
+        fail(f"phase 20 (c): eigenfunction_grid on the card vs the CPU "
+             f"{report}")
+    return report
+
+
+def phase_parallel(device, card: str, run_kernel, log_k, carry_k,
+                   fused_ms: float):
+    """Phase 20: (a)-(c). Returns the launches by path and the report."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    counts, report = {}, {"card": card}
+    t = time.perf_counter()
+    got, report["mesh_one"] = phase_mesh_one(device, card, run_kernel, log_k,
+                                             fused_ms)
+    counts.update(got)
+    report["mesh_one"]["phase_s"] = time.perf_counter() - t
+    print("phase 20 (a) world size 1 " + json.dumps(report["mesh_one"]),
+          flush=True)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        got, report["two_ranks"] = phase_two_ranks(device, tmp)
+    counts.update(got)
+    report["two_ranks"]["phase_s"] = time.perf_counter() - t
+    print("phase 20 (b) two ranks " + json.dumps(report["two_ranks"]),
+          flush=True)
+    t = time.perf_counter()
+    report["eigenfunctions"] = phase_eigenfunctions(
+        run_kernel.pipe, carry_k.model, run_kernel.pipe.config.data.h)
+    report["eigenfunctions"]["phase_s"] = time.perf_counter() - t
+    print("phase 20 (c) eigenfunction_grid "
+          + json.dumps(report["eigenfunctions"]), flush=True)
+    report["phase_s"] = time.perf_counter() - t0
+    return counts, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
                         help="libfused_qp.so of another checkout, held "
                              "against this one's (not gated)")
+    parser.add_argument("--two-rank-worker", nargs=3,
+                        metavar=("RANK", "PORT", "OUT"),
+                        help="run one rank of phase 20 (b) (the script "
+                             "starts both itself)")
     opts = parser.parse_args()
     import torch
 
@@ -3673,6 +3979,9 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    if opts.two_rank_worker:
+        rank, port, out = opts.two_rank_worker
+        return two_rank_worker(int(rank), int(port), out)
     from koopmanx_torch.device import resolve_device
     import threading
 
@@ -3886,7 +4195,22 @@ def main() -> int:
             "step_exact_plain")},
         "hil": {k: v for k, v in l3["hil"].items() if k.startswith("HIL")},
         "card": card}}), flush=True)
-    print(f"phase 19: {l3['phase_s']:.1f} s; phases 1-19: "
+    print(f"phase 19: {l3['phase_s']:.1f} s", flush=True)
+
+    # ---- 20. several cards: the mesh at world size 1 (NCCL), two ranks
+    # sharing the card (gloo), eigenfunction_grid on the card
+    parallel_counts, parallel = phase_parallel(
+        device, card, run_kernel, log_k, carry_k,
+        slice_line["kernel_route"]["ms_per_step"])
+    print(json.dumps({"parallel": {
+        "world_size_1": {k: parallel["mesh_one"][k] for k in (
+            "backend", "ms_per_step", "phase5_fused_loop_ms_per_step",
+            "x_u_equal_phase3", "fit", "kmae_step")},
+        "two_ranks": {k: parallel["two_ranks"][k] for k in (
+            "dx_f64", "floor_f64", "bit_for_bit", "worst_ratio_to_bound")},
+        "eigenfunction_grid": parallel["eigenfunctions"], "card": card}}),
+        flush=True)
+    print(f"phase 20: {parallel['phase_s']:.1f} s; phases 1-20: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
@@ -3906,7 +4230,8 @@ def main() -> int:
         "LQR (phase 17)": lqr["launches"],
         "local-linear (phase 17)": local_counts["box_admm"],
         **training_counts,
-        **l3_counts}
+        **l3_counts,
+        **parallel_counts}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -13,8 +13,9 @@ route (``mpc.qp_backend='pallas'``, the hand-written box-ADMM kernel) unless
 the plain route. The presets' own default is ``'xla'``, as in the JAX
 package, so the CLI sets the route itself. ``--x64`` runs in float64.
 ``train`` fits a KMAE encoder and decoder on the same device rule.
-``bench`` (ROADMAP L5) and ``--figures`` (item 21) are not ported and
-raise ``NotImplementedError``.
+``--figures`` (``run``, ``modes``) draws the figure set with matplotlib,
+which must be installed. ``bench`` (ROADMAP L5) is not ported and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -88,8 +89,6 @@ def cmd_run(args):
     from .eval.metrics import steady_state_error, tracking_mse
     from .run import build_pipeline, run_single
 
-    if args.figures:
-        _not_ported("--figures (eval/plots.py)", "item 21")
     device = _device(args)
     cfg = _config(args)
     pipe = build_pipeline(cfg, device=device)
@@ -106,6 +105,20 @@ def cmd_run(args):
         from .eval.persist import archive_run
 
         archive_run(args.archive, log, h=cfg.data.h, mat=args.mat)
+    if args.figures:
+        from .eval.plots import save_figure_bundle
+
+        bounds = (cfg.mpc.u_min, cfg.mpc.u_max)
+        # C-map reconstruction of the closed-loop trajectory through the
+        # initial model (duffing.py:354-390 reconstruction subplots)
+        with torch.no_grad():
+            x_recon = pipe.dictionary(log.x) @ pipe.model0.C.T
+        save_figure_bundle(
+            args.figures, log, h=cfg.data.h, u_bounds=bounds,
+            data=pipe.data, recon=(x, x_recon),
+            # spectrum + eigenfunction gallery of the final online-updated
+            # operator (what the adaptation converged to)
+            spectral=(carry.model, pipe.dictionary))
     summary = {
         "system": cfg.system,
         "steps": cfg.steps,
@@ -208,8 +221,6 @@ def cmd_modes(args):
     from .eval.modes import spectrum_summary
     from .run import build_pipeline, run_single
 
-    if args.figures:
-        _not_ported("--figures (eval/plots.py)", "item 21")
     device = _device(args)
     cfg = _config(args)
     pipe = build_pipeline(cfg, device=device)
@@ -221,6 +232,17 @@ def cmd_modes(args):
     summary = spectrum_summary(model, h=cfg.data.h)
     summary["model"] = label
     print(json.dumps(summary, indent=2))
+    if args.figures:
+        from .eval.modes import spectral_decomposition
+        from .eval.plots import eigenfunction_gallery, spectrum_plot
+
+        fig = eigenfunction_gallery(model, pipe.dictionary, h=cfg.data.h,
+                                    top=args.top)
+        fig.savefig(f"{args.figures}_eigenfunctions.png", dpi=130)
+        ax = spectrum_plot(spectral_decomposition(model, h=cfg.data.h))
+        ax.figure.savefig(f"{args.figures}_spectrum.png", dpi=130)
+        print(f"wrote {args.figures}_eigenfunctions.png, "
+              f"{args.figures}_spectrum.png")
 
 
 def cmd_presets(args):
@@ -285,7 +307,9 @@ def main(argv=None):
     pr.add_argument("--archive", help="write a results bundle (.npz)")
     pr.add_argument("--mat", action="store_true",
                     help="also write the reference-schema .mat bundle")
-    pr.add_argument("--figures", help="not ported (ROADMAP item 21)")
+    pr.add_argument("--figures",
+                    help="prefix for the standard figure set (PNG; needs "
+                         "matplotlib)")
     _device_flags(pr)
     pr.set_defaults(fn=cmd_run)
 
@@ -339,7 +363,8 @@ def main(argv=None):
                     help="analyze the online-updated model after a run "
                          "(default: the batch-EDMD model)")
     pm.add_argument("--figures", default=None,
-                    help="not ported (ROADMAP item 21)")
+                    help="prefix for the spectrum and eigenfunction figures "
+                         "(PNG; needs matplotlib)")
     pm.add_argument("--top", type=int, default=8)
     pm.add_argument("-o", "--override", action="append")
     _device_flags(pm)

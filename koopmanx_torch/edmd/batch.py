@@ -3,7 +3,7 @@
 the snapshot matrices."""
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -46,35 +46,48 @@ def combine_gram_stats(a: GramStats, b: GramStats) -> GramStats:
     return GramStats(*(p + q for p, q in zip(a, b)))
 
 
-def pinv(a: Tensor) -> Tensor:
-    """Pseudo-inverse with ``jnp.linalg.pinv``'s default cutoff: singular
-    values at most ``10 * max(M, N) * eps`` times the largest are dropped.
-    ``torch.linalg.pinv``'s own default is ``max(M, N) * eps``, ten times
-    smaller, so the cutoff is passed explicitly.
+def pinv(a: Tensor, rcond: Optional[float] = None) -> Tensor:
+    """Pseudo-inverse with ``jnp.linalg.pinv``'s cutoff: singular values at
+    most ``rcond`` times the largest are dropped, ``rcond`` by default
+    ``10 * max(M, N) * eps``. ``torch.linalg.pinv``'s own default is
+    ``max(M, N) * eps``, ten times smaller, so the cutoff is passed
+    explicitly.
 
     A matrix with a non-finite entry gives an all-NaN pseudo-inverse, as
     JAX's does (torch's SVD raises on one instead), so that the engine's
     guard holds that scenario alone."""
-    rtol = 10.0 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+    rtol = (10.0 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+            if rcond is None else rcond)
     finite = torch.isfinite(a).all(-1).all(-1)[..., None, None]
     out = torch.linalg.pinv(torch.where(finite, a, 0.0), rtol=rtol)
     return torch.where(finite, out, float("nan"))
 
 
-def fit_from_grams(stats: GramStats, nlift: int) -> LinearModel:
-    """``method='pinv'`` of the JAX package (the only fit the port has):
-    ``K = syv pinv(gvv)`` -> [A B], ``C = sxz pinv(gzz)``."""
-    k_ext = stats.syv @ pinv(stats.gvv)
-    c = stats.sxz @ pinv(stats.gzz)
+def fit_from_grams(stats: GramStats, nlift: int, method: str = "pinv",
+                   rcond: Optional[float] = None) -> LinearModel:
+    """The two normal-equation systems from Gram statistics:
+    ``K = syv gvv^-1`` -> [A B], ``C = sxz gzz^-1``. ``method='pinv'``
+    (the reference's pseudo-inverse, cutoff ``rcond``) or ``'solve'`` (a
+    linear solve on the transposed Grams, as ``jnp.linalg.solve``;
+    ``rcond`` is unused)."""
+    if method == "pinv":
+        k_ext = stats.syv @ pinv(stats.gvv, rcond)
+        c = stats.sxz @ pinv(stats.gzz, rcond)
+    elif method == "solve":
+        k_ext = torch.linalg.solve(stats.gvv.mT, stats.syv.mT).mT
+        c = torch.linalg.solve(stats.gzz.mT, stats.sxz.mT).mT
+    else:
+        raise ValueError(f"unknown method {method!r}")
     return LinearModel(A=k_ext[..., :, :nlift], B=k_ext[..., :, nlift:], C=c)
 
 
-def edmd_fit(dictionary: Dictionary, data: Snapshots) -> LinearModel:
+def edmd_fit(dictionary: Dictionary, data: Snapshots, method: str = "pinv",
+             rcond: Optional[float] = None) -> LinearModel:
     """Batch EDMD: (A, B) from lifted one-step pairs, C from the output
-    regression (``duffing.py:167-177``), by pinv."""
+    regression (``duffing.py:167-177``), by :func:`fit_from_grams`."""
     zx, zy = lift_snapshots(dictionary, data)
     stats = gram_stats(zx, zy, data.u, data.x)
-    return fit_from_grams(stats, dictionary.nlift)
+    return fit_from_grams(stats, dictionary.nlift, method, rcond)
 
 
 def edmd_fit_pinv_direct(dictionary: Dictionary, data: Snapshots

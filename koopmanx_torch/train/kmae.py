@@ -16,9 +16,16 @@ is kept (:549-552). Adam, lr 1e-3 (:58).
 Where JAX scans the horizon, this loops over it in Python on batched
 tensors; where JAX returns a new state from each step, the step here
 updates the modules and the optimizer in place and returns the state with
-the new carried (A, B), detached. The data-parallel form (the JAX
-package's ``axis_name``: the Grams summed and the gradients averaged over
-a mesh) is ROADMAP item 19 and is not here.
+the new carried (A, B), detached.
+
+Data parallelism (the JAX package's ``axis_name``): given the process
+group of a mesh (``parallel.make_mesh(...).get_group('data')``), each
+rank holds a block of the snapshots and windows, the fit's Grams are
+summed over the group before the ridge is added (every rank fits against
+the whole data set), and the gradients and the loss are averaged over it
+before the optimizer's step. The sum's gradient is the sum over the group
+of the ranks' cotangents, as JAX's transpose of ``psum`` is, so the
+averaged gradient is the whole batch's.
 """
 from __future__ import annotations
 
@@ -26,11 +33,13 @@ import dataclasses
 from typing import Callable, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
 from ..device import DeviceLike, resolve_device
 from ..lifts.mlp import MLP, mlp_init
 from ..ops.linalg import spd_inverse
+from ..parallel.sharded import psum_many
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,16 +91,26 @@ def adam(cfg: KMAEConfig) -> OptimizerFactory:
                                            betas=(0.9, 0.999), eps=1e-8)
 
 
-def differentiable_edmd(zx: Tensor, zy: Tensor, u: Tensor, ridge: float):
+def differentiable_edmd(zx: Tensor, zy: Tensor, u: Tensor, ridge: float,
+                        group=None):
     """(A, B) from ``min ||V K^T - Zy||`` with V = [Zx U], by the
     ridge-regularized normal equations, differentiable in Zx, Zy and U
     (the reference's pinv at DeepLearning...py:493-497). The ridged Gram
     is inverted by the pivot-free Gauss-Jordan ``spd_inverse`` (block 1),
-    whose gradient is that of its elementary operations, as in JAX."""
+    whose gradient is that of its elementary operations, as in JAX.
+
+    With a process ``group`` the Grams V'V and V'Zy are summed over its
+    ranks before the ridge is added once, so that every rank fits against
+    the whole data set (a rank's own block may hold fewer snapshots than
+    nlift + m)."""
     v = torch.cat([zx, u], dim=-1)  # (S, N+m)
     d = v.shape[-1]
-    g = v.T @ v + ridge * torch.eye(d, dtype=v.dtype, device=v.device)
-    k = (spd_inverse(g) @ (v.T @ zy)).T  # (N, N+m)
+    g = v.T @ v
+    vty = v.T @ zy
+    if group is not None:
+        g, vty = psum_many([g, vty], group)
+    g = g + ridge * torch.eye(d, dtype=v.dtype, device=v.device)
+    k = (spd_inverse(g) @ vty).T  # (N, N+m)
     nlift = zx.shape[-1]
     return k[:, :nlift], k[:, nlift:]
 
@@ -140,12 +159,15 @@ def l1_penalty(params: KMAEParams) -> Tensor:
 
 def kmae_loss(params: KMAEParams, a_prev: Tensor, b_prev: Tensor,
               x_snap: Tensor, y_snap: Tensor, u_snap: Tensor, x_win: Tensor,
-              u_win: Tensor, cfg: KMAEConfig, rec_only: bool = False):
+              u_win: Tensor, cfg: KMAEConfig, rec_only: bool = False,
+              group=None):
     """The loss and its parts; ``aux`` holds the blended (A, B), which
-    become the next step's ``a_prev``/``b_prev`` in both modes."""
+    become the next step's ``a_prev``/``b_prev`` in both modes. With a
+    process ``group``, this rank's loss on its block, the fit taken over
+    the whole data set (:func:`differentiable_edmd`)."""
     enc = params.encoder
     a_hat, b_hat = differentiable_edmd(enc(x_snap), enc(y_snap), u_snap,
-                                       cfg.ridge)
+                                       cfg.ridge, group)
     a = cfg.eta * a_hat + (1.0 - cfg.eta) * a_prev  # DeepLearning...py:498
     b = cfg.eta * b_hat + (1.0 - cfg.eta) * b_prev
     l_rec, l_lin, l_pred = multi_step_loss(params, a, b, x_win, u_win, cfg)
@@ -175,7 +197,8 @@ def make_windows(x: Tensor, y: Tensor, u: Tensor, n_step: int, horizon: int):
 
 
 def make_train_step(cfg: KMAEConfig,
-                    optimizer: Optional[OptimizerFactory] = None):
+                    optimizer: Optional[OptimizerFactory] = None,
+                    group=None):
     """One KMAE optimizer step, and the optimizer factory that
     :func:`init_state` uses (``optimizer``, else :func:`adam`).
 
@@ -183,7 +206,12 @@ def make_train_step(cfg: KMAEConfig,
     backpropagates the loss, steps the state's optimizer (its modules
     change in place) and returns ``(state, loss, aux)`` with the blended
     (A, B) as the new ``a_prev``/``b_prev``; loss and aux are detached, so
-    no step's graph outlives it."""
+    no step's graph outlives it.
+
+    With a process ``group`` (data parallelism: each rank passes its
+    block of the snapshots and windows and the same state), the gradients
+    and the loss are averaged over its ranks, in one ``all_reduce``,
+    before the step: every rank takes the same step."""
     factory = adam(cfg) if optimizer is None else optimizer
 
     def train_step(state: KMAEState, x_snap, y_snap, u_snap, x_win, u_win,
@@ -192,14 +220,28 @@ def make_train_step(cfg: KMAEConfig,
         opt.zero_grad(set_to_none=True)
         loss, aux = kmae_loss(state.params, state.a_prev, state.b_prev,
                               x_snap, y_snap, u_snap, x_win, u_win, cfg,
-                              rec_only)
+                              rec_only, group)
         loss.backward()
+        if group is not None:
+            loss = _pmean_grads(state.params.leaves(), loss.detach(), group)
         opt.step()
         aux = {k: v.detach() for k, v in aux.items()}
         return (state._replace(a_prev=aux["a"], b_prev=aux["b"]),
                 loss.detach(), aux)
 
     return train_step, factory
+
+
+def _pmean_grads(leaves: List[Tensor], loss: Tensor, group) -> Tensor:
+    """Average the leaves' gradients (in place) and ``loss`` over the
+    ranks of ``group`` (``jax.lax.pmean``: the sum, then divided by the
+    group's size); returns the averaged loss."""
+    world = dist.get_world_size(group)
+    with torch.no_grad():
+        summed = psum_many([p.grad for p in leaves] + [loss], group)
+        for p, g in zip(leaves, summed):
+            p.grad.copy_(g / world)
+    return summed[-1] / world
 
 
 def init_state(gen: torch.Generator, cfg: KMAEConfig, n: int, nlift: int,

@@ -4,6 +4,7 @@ typing, the RunConfig JSON files of both packages, the preset listing, the
 refused subcommands and flags, and the refusal to run on the CPU unasked."""
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -148,11 +149,26 @@ def test_sweep_validate_and_modes_on_the_cpu(capsys):
     (["run", "--cpu", "--figures", "out"], "item 21"),
     (["modes", "--cpu", "--figures", "out"], "item 21"),
 ])
-def test_refused_subcommands_name_their_item(argv, item, capsys):
+def test_refused_subcommands_name_their_item(argv, item, capsys, tmp_path):
     """The subcommands and flags of later items raise, naming their ROADMAP
     item. ``train`` (item 18) is ported: at a tiny size it trains and
     prints the last epoch's record (tests/test_torch_train.py holds it to
-    the JAX package)."""
+    the JAX package). ``--figures`` (item 21) is ported: ``run`` writes
+    the figure set and ``modes`` its two figures under the prefix
+    (tests/test_torch_plots.py holds them to the JAX package's)."""
+    if item == "item 21":
+        prefix = str(tmp_path / argv[-1])
+        cli.main([*argv[:-1], prefix, *SMALL, "--steps", "20"])
+        capsys.readouterr()
+        names = sorted(os.listdir(tmp_path))
+        want = ({"out_eigenfunctions.png", "out_spectrum.png"}
+                if argv[0] == "modes" else
+                {"out_tracking.png", "out_drift.png", "out_input.png",
+                 "out_phase.png", "out_training_scatter.png",
+                 "out_reconstruction.png", "out_spectrum.png",
+                 "out_eigenfunctions.png"})
+        assert want <= set(names), names
+        return
     if argv[0] == "train":
         cli.main([*argv, "--n-step", "10", "--n-traj", "8", "--hidden", "8",
                   "--nlift", "4", "--pred-horizon", "3", "--epochs", "1"])
