@@ -311,14 +311,32 @@ Phases, each of which fails the run on error:
    dictionary in float64, phase 3's end-state model) against the CPU
    within 1e-10 of max(1, |phi|). The rest of ``eval/plots.py`` draws
    with matplotlib, which the card's machine lacks: it is held to the JAX
-   package's in ``tests/test_torch_plots.py`` only.
+   package's in ``tests/test_torch_plots.py`` only;
+21. the measuring entry points: (a) ``python -m koopmanx_torch.bench`` as
+   a process of its own at its defaults (the flagship, 8192 scenarios x
+   200 steps, best of 3 timed runs after a warm-up, the kernel route):
+   one JSON line, value = batch x steps / wall, 600 launches in the timed
+   runs, its tracking MSE and steady-state error within 1 % / 5 % of
+   phase 3's (the same workload); (b) ``koopmanx_torch.bench.run_bench``
+   on the plain route (one timed run): no launch, quality within 1 % / 5
+   % of (a); (c) ``run_bench`` on every other preset of the JAX bench
+   (``tank``, ``duffing_rbf128``, ``tank_mimo``, ``vanderpol``,
+   ``vanderpol_rbf``, ``revise2_duffing``, ``revise2_vdp``, ``toy1d``) at
+   8192 scenarios over 20 steps, 20 launches each, a finite value;
+   (d) ``tools/bench_serving_torch.py`` over fleets of 1, 256 and 8192
+   (20 calls each) and its curve (10 calls a variant): finite latencies,
+   one launch a call, device operations a call ordered full > lean >
+   empty dispatch, the p50s beside phase 16's; (e)
+   ``tools/validate_scale_torch.py`` on ``vanderpol`` at its reference
+   length of 1000 steps: finite, |u| within the preset's box, 1000
+   launches.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
 line, a serving JSON line (phase 16's latencies), a control-laws JSON
 line (phase 17), a training JSON line (phase 18), a phase 19 JSON line,
-a phase 20 JSON line, the card line
+a phase 20 JSON line, a phase 21 JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -562,6 +580,20 @@ SERVE_REFINE = {"batch": 256, "calls": 40, "reset_at": 20}
 # rank within TWO_RANK_TIMEOUT seconds. (c) eigenfunction_grid on the card
 # against the CPU in float64, within EIGFUN_TOL of max(1, |phi|)
 FIT_TOL, TWO_RANK_TIMEOUT, EIGFUN_TOL = 1e-10, 300, 1e-10
+
+
+# phase 21: the JAX bench's other presets at full width, cut from 200
+# steps to BENCH_OTHER_STEPS for the script's time (each is one warm-up
+# and one timed run); the serving tool's fleets and reps, its curve's
+# reps; the validation tool's preset at its reference length (the
+# closed loop of vanderpol.py)
+BENCH_OTHER = ("tank", "duffing_rbf128", "tank_mimo", "vanderpol",
+               "vanderpol_rbf", "revise2_duffing", "revise2_vdp", "toy1d")
+BENCH_OTHER_STEPS = 20
+SERVING_ARGV = ["--batches", f"1,256,{BATCH}", "--reps", "20"]
+CURVE_ARGV = ["--curve", "--reps", "10"]
+VALIDATE_ENV = {"PRESET": "vanderpol", "STEPS": "1000"}
+BENCH_TIMEOUT = 600  # seconds for the bench's own process
 
 
 def fail(msg: str) -> None:
@@ -3959,6 +3991,164 @@ def phase_parallel(device, card: str, run_kernel, log_k, carry_k,
     return counts, report
 
 
+def tool_module(name: str):
+    """``tools/<name>.py`` as a module."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    return importlib.import_module(name)
+
+
+def quietly(fn, *args):
+    """``fn(*args)`` with its standard output captured (the tools print
+    their JSON lines; this script prints its own)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def check_bench_line(out: dict, name: str, launches: int):
+    """A bench record: value = batch x steps / best wall (rounded to 0.1 as
+    bench.py rounds it), ``launches`` box-ADMM launches, finite."""
+    d = out["detail"]
+    want = round(d["batch"] * d["steps"] / d["wall_s"], 1)
+    if out["value"] != want or not math.isfinite(out["value"]):
+        fail(f"{name}: value {out['value']} against batch x steps / wall "
+             f"{want}")
+    if d["box_admm_launches"] != launches:
+        fail(f"{name}: {d['box_admm_launches']} launches, want {launches}")
+    if "vs_baseline" in out:
+        fail(f"{name}: a vs_baseline against the TPU baseline")
+
+
+def within_quality(got, ref, name: str):
+    """(MSE, steady-state error) within QUALITY_RTOL of ``ref``."""
+    for a, b, what in ((got[0], ref[0], "tracking MSE"),
+                       (got[1], ref[1], "steady-state error")):
+        if not (math.isfinite(a)
+                and abs(a - b) <= QUALITY_RTOL[what] * max(abs(b), 1e-9)):
+            fail(f"{name}: {what} {a} against {b}")
+
+
+def phase_bench(card: str, run_kernel, log_k, serving):
+    """Phase 21: the bench, the serving tool and the validation tool.
+    ``run_kernel`` and ``log_k`` are phase 3's loop and log, ``serving``
+    phase 16's report. Returns the launch counts by path and the phase's
+    report."""
+    import gc
+
+    import torch
+    from koopmanx_torch import bench
+
+    t0 = time.perf_counter()
+    report, counts = {"card": card}, {}
+    # (a) the module alone, at its defaults, in a process of its own
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    proc = subprocess.run([sys.executable, "-m", "koopmanx_torch.bench"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"python -m koopmanx_torch.bench: exit {proc.returncode}, "
+             f"{len(lines)} lines; {proc.stderr[-2000:]}")
+    head = json.loads(lines[0])
+    d = head["detail"]
+    check_bench_line(head, "bench (a)", d["reps"] * STEPS)
+    if (d["batch"], d["steps"], d["reps"], d["qp_backend"]) != (
+            BATCH, STEPS, 3, "pallas"):
+        fail(f"bench (a): not the defaults: {d}")
+    got = (d["tracking_mse"], d["steady_state_error"])
+    # phase 3's log through the bench's own measure (float64 sums)
+    ref = bench.tracking_quality(run_kernel.pipe.config, log_k)
+    within_quality(got, ref, "bench (a) against phase 3")
+    report["a"] = {"line": head, "phase3_quality": list(ref),
+                   "gap_to_phase3": [got[0] - ref[0], got[1] - ref[1]]}
+    counts["bench flagship, 3 timed runs (phase 21)"] = d["box_admm_launches"]
+    print("phase 21 (a) bench " + json.dumps(report["a"]), flush=True)
+
+    # (b) the plain route, in this process
+    plain = bench.run_bench({"BENCH_QP_BACKEND": "xla", "BENCH_REPS": "1"})
+    check_bench_line(plain, "bench (b)", 0)
+    within_quality((plain["detail"]["tracking_mse"],
+                    plain["detail"]["steady_state_error"]), got,
+                   "bench (b) plain against (a)")
+    report["b"] = {
+        "ms_per_step_kernel_route": d["per_step_latency_ms"],
+        "ms_per_step_plain_route": plain["detail"]["per_step_latency_ms"],
+        "value_plain": plain["value"], "value_kernel": head["value"],
+        "quality_plain": [plain["detail"]["tracking_mse"],
+                          plain["detail"]["steady_state_error"]]}
+    counts["bench flagship, plain route (phase 21)"] = (
+        plain["detail"]["box_admm_launches"])
+    print("phase 21 (b) plain route " + json.dumps(report["b"]), flush=True)
+
+    # (c) the JAX bench's other presets
+    report["c"] = {}
+    for preset in BENCH_OTHER:
+        out = bench.run_bench({"BENCH_PRESET": preset, "BENCH_REPS": "1",
+                               "BENCH_STEPS": str(BENCH_OTHER_STEPS)})
+        check_bench_line(out, f"bench (c) {preset}", BENCH_OTHER_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        keep = ("wall_s", "per_step_latency_ms", "box_admm_launches",
+                "tracking_mse", "steady_state_error")
+        report["c"][preset] = {"value": out["value"],
+                               **{k: out["detail"][k] for k in keep}}
+        counts[f"bench {preset}, {BENCH_OTHER_STEPS} steps (phase 21)"] = (
+            out["detail"]["box_admm_launches"])
+        print(f"phase 21 (c) {preset} " + json.dumps(report["c"][preset]),
+              flush=True)
+
+    # (d) the serving tool: the fleet table, then the curve
+    serving_tool = tool_module("bench_serving_torch")
+    rows = quietly(serving_tool.main, SERVING_ARGV)
+    for row in rows:
+        if not all(math.isfinite(row[k])
+                   for k in ("best_ms", "mean_ms", "p50_ms")):
+            fail(f"serving tool: non-finite latency {row}")
+        if row["box_admm_launches"] != row["calls"]:
+            fail(f"serving tool: {row['box_admm_launches']} launches in "
+                 f"{row['calls']} calls ({row['metric']})")
+        counts[f"serving tool, {row['metric']} (phase 21)"] = (
+            row["box_admm_launches"])
+    curve = quietly(serving_tool.main, CURVE_ARGV)[-1]["curve"]
+    ops = {row["variant"]: row["device_ops"] for row in curve}
+    if not ops["full"] > ops["lean"] > ops["tiny_identity"]:
+        fail(f"serving curve: device operations {ops}")
+    if not all(math.isfinite(row["best_ms"]) for row in curve):
+        fail(f"serving curve: non-finite latency {curve}")
+    single, fleet = rows[0], rows[-1]
+    report["d"] = {
+        "single_p50_ms": single["p50_ms"],
+        "phase16_single_p50_ms": serving["latency_single_pallas"]["p50_ms"],
+        "fleet_p50_ms": fleet["p50_ms"],
+        "phase16_fleet_p50_ms": serving["latency_fleet_pallas"]["p50_ms"],
+        "dispatch_baseline_ms": single["dispatch_baseline_ms"],
+        "rows": rows, "curve": curve}
+    print("phase 21 (d) serving tool " + json.dumps(report["d"]), flush=True)
+
+    # (e) the validation tool at the VDP closed loop's reference length
+    from koopmanx_torch import configs as C
+
+    steps = int(VALIDATE_ENV["STEPS"])
+    val = quietly(tool_module("validate_scale_torch").main, VALIDATE_ENV)
+    u_max = C.PRESETS[VALIDATE_ENV["PRESET"]]().mpc.u_max
+    if not val["finite"] or not val["u_abs_max"] <= u_max:
+        fail(f"validate_scale_torch: finite {val['finite']}, |u| "
+             f"{val['u_abs_max']} against {u_max}")
+    if val["box_admm_launches"] != steps:
+        fail(f"validate_scale_torch: {val['box_admm_launches']} launches in "
+             f"{steps} steps")
+    report["e"] = val
+    counts[f"validate_scale {VALIDATE_ENV['PRESET']} {steps} steps "
+           "(phase 21)"] = val["box_admm_launches"]
+    print("phase 21 (e) validate_scale " + json.dumps(val), flush=True)
+    report["phase_s"] = time.perf_counter() - t0
+    return counts, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -4212,6 +4402,18 @@ def main() -> int:
         flush=True)
     print(f"phase 20: {parallel['phase_s']:.1f} s; phases 1-20: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 21. the measuring entry points: the bench, the serving and the
+    # validation tools
+    bench_counts, bench_report = phase_bench(card, run_kernel, log_k,
+                                             serving)
+    print(json.dumps({"bench": {
+        "a": bench_report["a"]["line"], "b": bench_report["b"],
+        "c": bench_report["c"],
+        "d": {k: v for k, v in bench_report["d"].items() if k != "rows"},
+        "e": bench_report["e"]}, "card": card}), flush=True)
+    print(f"phase 21: {bench_report['phase_s']:.1f} s; phases 1-21: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
         "tank (phase 7)": tank_counts["box_admm"],
@@ -4231,7 +4433,8 @@ def main() -> int:
         "local-linear (phase 17)": local_counts["box_admm"],
         **training_counts,
         **l3_counts,
-        **parallel_counts}
+        **parallel_counts,
+        **bench_counts}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -4,6 +4,7 @@
   python -m koopmanx_torch.cli run --config my_config.json --save-log out.npz
   python -m koopmanx_torch.cli sweep --preset duffing --batch 8192
   python -m koopmanx_torch.cli train --system duffing --export out/duffing
+  python -m koopmanx_torch.cli bench --batch 8192 --steps 200
   python -m koopmanx_torch.cli presets
 
 Runs go to the CUDA card unless ``--cpu`` asks for the CPU; without a card
@@ -14,8 +15,9 @@ the plain route. The presets' own default is ``'xla'``, as in the JAX
 package, so the CLI sets the route itself. ``--x64`` runs in float64.
 ``train`` fits a KMAE encoder and decoder on the same device rule.
 ``--figures`` (``run``, ``modes``) draws the figure set with matplotlib,
-which must be installed. ``bench`` (ROADMAP L5) is not ported and raises
-``NotImplementedError``.
+which must be installed. ``bench`` runs ``koopmanx_torch.bench`` (the
+counterpart of ``bench.py``) on the same device rule, the kernel route on
+the card and the plain route with ``--cpu``.
 """
 from __future__ import annotations
 
@@ -51,11 +53,6 @@ def _apply_overrides(cfg, overrides):
             val = float(val)
         setattr(obj, parts[-1], val)
     return cfg
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue A, {item})")
 
 
 def _device(args):
@@ -255,7 +252,23 @@ def cmd_presets(args):
 
 
 def cmd_bench(args):
-    _not_ported("the bench subcommand (a torch bench.py)", "L5")
+    """``koopmanx_torch.bench`` with ``--batch``, ``--steps`` and
+    ``--horizon`` as ``BENCH_BATCH``, ``BENCH_STEPS`` and
+    ``BENCH_HORIZON`` (``koopmanx/cli.py:125-138``), and ``--cpu`` as
+    ``BENCH_DEVICE=cpu``; the other ``BENCH_*`` knobs from the
+    environment."""
+    import os
+
+    from . import bench
+
+    env = dict(os.environ)
+    for k, v in (("BENCH_BATCH", args.batch), ("BENCH_STEPS", args.steps),
+                 ("BENCH_HORIZON", args.horizon)):
+        if v:
+            env[k] = str(v)
+    if args.cpu:
+        env["BENCH_DEVICE"] = "cpu"
+    bench.main(env)
 
 
 def cmd_train(args):
@@ -338,10 +351,17 @@ def main(argv=None):
                          "must be present)")
     pt.set_defaults(fn=cmd_train)
 
-    pb = sub.add_parser("bench", help="not ported (ROADMAP L5)")
+    pb = sub.add_parser(
+        "bench", help="the headline benchmark: batched closed-loop solves/s "
+                      "(koopmanx_torch.bench; BENCH_* knobs from the "
+                      "environment)")
     pb.add_argument("--batch", type=int)
     pb.add_argument("--steps", type=int)
     pb.add_argument("--horizon", type=int)
+    pb.add_argument("--cpu", action="store_true",
+                    help="run on the CPU, the plain route (BENCH_DEVICE=cpu; "
+                         "default: the CUDA card, which must be present, "
+                         "and the box-ADMM kernel)")
     pb.set_defaults(fn=cmd_bench)
 
     ps = sub.add_parser("sweep",

@@ -1,6 +1,7 @@
 """Device resolution shared by the port's entry points."""
 from __future__ import annotations
 
+import subprocess
 from typing import Optional, Union
 
 import torch
@@ -35,3 +36,13 @@ def torch_dtype(name: str) -> torch.dtype:
         return _DTYPES[name]
     except KeyError:
         raise ValueError(f"unsupported dtype {name!r}; use {sorted(_DTYPES)}")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()

@@ -1,7 +1,8 @@
 """``python -m koopmanx_torch.cli`` against ``koopmanx.cli``: the override
 typing, the RunConfig JSON files of both packages, the preset listing, the
 ``run``, ``sweep``, ``validate`` and ``modes`` subcommands on the CPU, the
-refused subcommands and flags, and the refusal to run on the CPU unasked."""
+subcommands and flags of later items, and the refusal to run on the CPU
+unasked."""
 import dataclasses
 import json
 import os
@@ -150,12 +151,15 @@ def test_sweep_validate_and_modes_on_the_cpu(capsys):
     (["modes", "--cpu", "--figures", "out"], "item 21"),
 ])
 def test_refused_subcommands_name_their_item(argv, item, capsys, tmp_path):
-    """The subcommands and flags of later items raise, naming their ROADMAP
-    item. ``train`` (item 18) is ported: at a tiny size it trains and
-    prints the last epoch's record (tests/test_torch_train.py holds it to
-    the JAX package). ``--figures`` (item 21) is ported: ``run`` writes
-    the figure set and ``modes`` its two figures under the prefix
-    (tests/test_torch_plots.py holds them to the JAX package's)."""
+    """The subcommands and flags that later items ported, each named by
+    its ROADMAP item, now run. ``bench`` (L5) on the CPU at 8 scenarios and
+    4 steps prints bench.py's one JSON line on the plain route
+    (tests/test_torch_bench.py holds it to the JAX bench). ``train``
+    (item 18) at a tiny size trains and prints the last epoch's record
+    (tests/test_torch_train.py holds it to the JAX package).
+    ``--figures`` (item 21): ``run`` writes the figure set and ``modes``
+    its two figures under the prefix (tests/test_torch_plots.py holds them
+    to the JAX package's)."""
     if item == "item 21":
         prefix = str(tmp_path / argv[-1])
         cli.main([*argv[:-1], prefix, *SMALL, "--steps", "20"])
@@ -176,8 +180,14 @@ def test_refused_subcommands_name_their_item(argv, item, capsys, tmp_path):
         final = json.loads(out[out.index("\n{") + 1:])["final"]
         assert final["epoch"] == 0 and np.isfinite(final["loss"])
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue A, {item}"):
-        cli.main(argv)
+    launches = box_admm.launches
+    cli.main([*argv, "--cpu", "--batch", "8", "--steps", "4"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    out = json.loads(lines[-1])
+    assert len(lines) == 1 and out["unit"] == "solves/s"
+    assert out["detail"]["batch"] == 8 and out["detail"]["steps"] == 4
+    assert out["detail"]["qp_backend"] == "xla"
+    assert out["value"] > 0 and box_admm.launches == launches
 
 
 def test_run_without_cpu_needs_a_card():

@@ -23,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -31,15 +30,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
-
-
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of the card."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
 
 
 def build(preset: str, steps: int, cpu: bool, dtype: str = None):
@@ -174,6 +164,8 @@ def main(argv=None) -> dict:
                  args.fleet)
     out["device"] = str(pipe.device)
     if pipe.device.type == "cuda":
+        from koopmanx_torch.device import card_line
+
         out["card"] = card_line()
     print(json.dumps(out), flush=True)
     return out
