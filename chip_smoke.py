@@ -329,14 +329,46 @@ Phases, each of which fails the run on error:
    empty dispatch, the p50s beside phase 16's; (e)
    ``tools/validate_scale_torch.py`` on ``vanderpol`` at its reference
    length of 1000 steps: finite, |u| within the preset's box, 1000
-   launches.
+   launches;
+22. gradients through the closed loop (the plain route, as ``jax.grad``
+   in the JAX package) and the four examples: (a) one value-and-grad of
+   the flagship's batch-mean settled tracking cost (x1 against r1 over
+   the second half) w.r.t. a shared log r at full width (8192 scenarios,
+   200 steps, f32) under ``EngineConfig.remat``: the forward's and the
+   value-and-grad's ms, the peak device memory, device operations a step,
+   a finite, non-zero gradient; then 512 scenarios over 20 steps with and
+   without remat, each scenario with its own log r, both peaks and the
+   spread of the per-scenario derivatives; (b) float64 at 64 scenarios
+   over 16 and 40 steps on one pipeline built on the CPU and moved: the
+   card's gradient against the CPU's (1e-9 or ten times the CPU's own
+   one-ulp floor: the largest change from one ulp of x0, of the initial
+   A or of r), remat against the stored graph (1e-12), both against
+   a central difference where the gradient is well conditioned; (c)
+   three Adam steps of ``examples/tune_weights_torch.py::tune`` at 100
+   steps, finite; (d) the flagship on the kernel route with a log r that
+   requires grad raises ``ValueError`` and launches nothing; (e) the
+   compute functions of ``examples/duffing_comparison_torch.py`` (600
+   steps x 2 loops), ``local_linear_comparison_torch.py`` (400 x 2) and
+   ``tank_delta_u_torch.py`` (1200) as a user calls them on the card
+   (float32, the kernel route): one launch a step, finite metrics,
+   printed; then each loop of each example through its own ``config``
+   in float64 on both routes over the same steps, each step within 1e-8
+   or ten times the plain route's own round-off floor (phase 15's rule:
+   one ulp of x_init, one ulp of the initial A, the plain ADMM with its
+   sums reassociated), its tracking MSE and steady-state error within
+   1 % / 5 % of the plain route's. (a) runs alone, for its times; (b)
+   and (e)'s float64 gates (one process for each example) then run in
+   processes of their own (this script with ``--phase22-part``) beside
+   (c), (d) and (e)'s float32 runs: each step is host-bound, so each
+   process keeps one core busy.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
 line, a serving JSON line (phase 16's latencies), a control-laws JSON
 line (phase 17), a training JSON line (phase 18), a phase 19 JSON line,
-a phase 20 JSON line, a phase 21 JSON line, the card line
+a phase 20 JSON line, a phase 21 JSON line, a phase 22 JSON line, the
+card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -594,6 +626,51 @@ SERVING_ARGV = ["--batches", f"1,256,{BATCH}", "--reps", "20"]
 CURVE_ARGV = ["--curve", "--reps", "10"]
 VALIDATE_ENV = {"PRESET": "vanderpol", "STEPS": "1000"}
 BENCH_TIMEOUT = 600  # seconds for the bench's own process
+# phase 22: gradients through the closed loop and the four examples. (a)
+# the flagship at full width under remat, one value-and-grad of the
+# batch-mean settled cost w.r.t. a shared log r; then GRAD_SMALL_BATCH
+# scenarios with and without remat over GRAD_SMALL_STEPS (cut from 200 for
+# the script's time: the backward pass is host-bound, ~45 s at 200 steps),
+# each scenario with its own log r so that the spread of the per-scenario
+# derivatives shows (without remat the full width would keep every step's
+# activations: tens of GB); device operations counted over GRAD_OPS_STEPS
+# steps. (b) float64 at GRAD_F64_BATCH scenarios over each of
+# GRAD_F64_STEPS, on one pipeline built on the CPU and moved: the card
+# against the CPU within GRAD_F64_RTOL or ten times the CPU's own change
+# from one ulp (the largest of every x0, the initial model's A and r moved
+# up by one ulp: one ulp of x0 alone left a card run 1.06e-9 from the CPU
+# at 16 steps, over ten times its 5.7e-11; the card reassociates sums at
+# every step; at 40 steps the floor is ~1 % of the gradient, so that gate
+# is loose), remat
+# against the stored graph within GRAD_REMAT_RTOL, both against a central
+# difference of the forward cost (step FD_STEP in log r) within FD_RTOL or
+# ten times the cost's own one-ulp change over the step (at 16 steps the
+# derivative is ~3e-6 of the cost: its round-off alone moves the
+# difference by ~3e-4), where the gradient is well conditioned (the CPU's
+# one-ulp change under FD_COND relative; a CPU rehearsal at 40 steps: two
+# of 64 scenarios near an active-set change carry the shared derivative,
+# 1.3 % of which moves with one ulp of x0, and a central difference at 1e-4
+# is 39 % away); printed elsewhere. (c) TUNE_ITERS Adam steps of
+# examples/tune_weights_torch.py, cut from its 200 steps to TUNE_STEPS for
+# the script's time. (e) the three comparison examples at their default
+# steps: as a user calls them (float32, the kernel route), then in float64
+# on both routes over EXAMPLE_ROWS scenarios (the example's own start, x0
+# and the initial A each moved one ulp up and down), each step held to
+# phase 15's rule (EARLY_TOL or ten times the plain route's own round-off
+# floor) and the metrics to QUALITY_RTOL. The float32 runs are not held
+# to each other: one float32 scenario's steady-state error moves by tens
+# of per cent under round-off alone (the duffing example's online loop on
+# an H100 at 700 W: 0.0034 on the kernel route, 0.0022 on the plain one;
+# 0.00175-0.0029 on the CPU over six ulps of x_init)
+GRAD_SMALL_BATCH, GRAD_SMALL_STEPS, GRAD_OPS_STEPS = 512, 20, 2
+GRAD_F64_BATCH, GRAD_F64_STEPS = 64, (16, 40)
+GRAD_F64_RTOL, GRAD_REMAT_RTOL, FD_STEP, FD_RTOL = 1e-9, 1e-12, 1e-4, 1e-4
+FD_COND = 1e-8
+TUNE_STEPS, TUNE_ITERS = 100, 3
+EXAMPLE_ROWS = 5
+# (b) and (e)'s float64 gates run in processes of their own beside the
+# rest of phase 22; the CPU gradients of (b) on PART_B_THREADS threads
+PART_B_THREADS, PART_TIMEOUT = 4, 600
 
 
 def fail(msg: str) -> None:
@@ -4149,6 +4226,451 @@ def phase_bench(card: str, run_kernel, log_k, serving):
     return counts, report
 
 
+def settled_cost_grad(pipe, batch, log_r: float = 0.0, grad: bool = True,
+                      remat: bool = False, per_scenario: bool = False):
+    """The batch-mean settled tracking cost of the flagship's tune (x1
+    against r1 over the second half of the run) with ``r_block`` scaled by
+    a shared ``exp(log_r)``, and its derivative in ``log_r`` (None without
+    ``grad``: the loop then records no graph), through the user entry
+    points; ``remat`` checkpoints each step. ``per_scenario`` gives each
+    scenario its own log r (all ``log_r``): the derivative is then the
+    (B,) vector of B times each scenario's part, whose mean is the shared
+    derivative."""
+    import torch
+    from koopmanx_torch.engine.loop import run_batch
+    from koopmanx_torch.run import replicate, with_engine_config
+
+    if remat:
+        pipe = with_engine_config(pipe, remat=True)
+    b, x0 = batch.x0.shape[0], batch.x0
+    lr = torch.full((b,) if per_scenario else (), log_r, dtype=x0.dtype,
+                    device=x0.device, requires_grad=grad)
+    params = replicate(pipe.params, b)
+    scale = torch.exp(lr)[..., None, None] if per_scenario else torch.exp(lr)
+    params = params._replace(r_block=scale * params.r_block)
+    _, log = run_batch(pipe.closed_loop, params, x0,
+                       replicate(pipe.model0, b), replicate(pipe.rls0, b),
+                       batch.theta0, batch.theta1)
+    err = log.x[..., 0] - log.r[..., 0]
+    cost = (err[:, pipe.engine_cfg.steps // 2:] ** 2).mean()
+    if not grad:
+        return float(cost), None
+    (g,) = torch.autograd.grad(cost, lr)
+    return float(cost.detach()), (g * b if per_scenario else float(g))
+
+
+def grad_run(pipe, batch, remat: bool, per_scenario: bool = False):
+    """``(cost, grad, seconds, peak GiB)`` of one value-and-grad over
+    ``pipe`` and ``batch``, the peak device memory from a reset just
+    before."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (cost, g), secs = timed(lambda: settled_cost_grad(
+        pipe, batch, remat=remat, per_scenario=per_scenario))
+    return cost, g, secs, torch.cuda.max_memory_allocated() / 2**30
+
+
+def spread_report(g):
+    """The shared derivative (the mean) of per-scenario ones and their
+    spread: quantiles of |g_b|, and how many pass 1."""
+    import torch
+
+    a = g.abs().double()
+    q = torch.quantile(a, torch.tensor([0.5, 0.9, 0.99, 1.0],
+                                       dtype=a.dtype, device=a.device))
+    return {"shared": float(g.double().mean()),
+            "abs_p50_p90_p99_max": [float(v) for v in q],
+            "count_abs_above_1": int((a > 1.0).sum()),
+            "finite": bool(torch.isfinite(g).all())}
+
+
+def phase_grad_full_width(device):
+    """Phase 22 (a): the flagship on the plain route (B = BATCH, STEPS,
+    f32) under remat, forward alone and forward + backward, its peak and
+    device operations a step; then GRAD_SMALL_BATCH x GRAD_SMALL_STEPS
+    with and without remat, per-scenario log r."""
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.run import with_engine_config
+
+    run = config_loop(flagship_config(STEPS, HORIZON, "xla"), device)
+    _, fwd_s = timed(lambda: settled_cost_grad(run.pipe, run.batch,
+                                               grad=False))
+    cost, g, secs, peak = grad_run(run.pipe, run.batch, remat=True)
+    short = with_engine_config(run.pipe, steps=GRAD_OPS_STEPS)
+    ops = device_ops_per_call(lambda: settled_cost_grad(
+        short, run.batch, remat=True), calls=1) / GRAD_OPS_STEPS
+    report = {"batch": BATCH, "steps": STEPS, "remat": True,
+              "cost": cost, "grad": g, "forward_ms": fwd_s * 1e3,
+              "value_and_grad_ms": secs * 1e3,
+              "value_and_grad_over_forward": secs / fwd_s,
+              "peak_gib": peak, "device_ops_per_step": ops}
+    if not (math.isfinite(g) and g != 0.0 and math.isfinite(cost)):
+        fail(f"full-width gradient {g} (cost {cost})")
+    small = config_loop(flagship_config(GRAD_SMALL_STEPS, HORIZON, "xla"),
+                        device, batch=GRAD_SMALL_BATCH)
+    report["small"] = {"batch": GRAD_SMALL_BATCH, "steps": GRAD_SMALL_STEPS}
+    for remat in (True, False):
+        c, gs, t, pk = grad_run(small.pipe, small.batch, remat,
+                                per_scenario=True)
+        spread = spread_report(gs)
+        report["small"]["remat" if remat else "stored"] = {
+            "cost": c, "grad": spread, "value_and_grad_ms": t * 1e3,
+            "peak_gib": pk}
+        if not (spread["finite"] and spread["shared"] != 0.0):
+            fail(f"gradient at B = {GRAD_SMALL_BATCH}, remat {remat}: "
+                 f"{spread}")
+    print("phase 22 (a) full-width gradient " + json.dumps(report),
+          flush=True)
+    return report
+
+
+def phase_grad_f64(device):
+    """Phase 22 (b): float64 at GRAD_F64_BATCH scenarios over each of
+    GRAD_F64_STEPS, one pipeline built on the CPU and moved to the card:
+    the card's gradient against the CPU's, remat against the stored
+    graph, both against a central difference where the gradient is well
+    conditioned."""
+    import torch
+    from koopmanx_torch.configs import flagship_config
+    from koopmanx_torch.convert import pipeline_from_numpy, pipeline_to_numpy
+    from koopmanx_torch.tree import tree_map
+
+    up = lambda t: torch.nextafter(t, torch.full_like(t, math.inf))
+    rel = lambda a, b: abs(a - b) / abs(b)
+    reports, fd_gated = {}, 0
+    for steps in GRAD_F64_STEPS:
+        cfg = flagship_config(steps, HORIZON, "xla")
+        cpu = config_loop(cfg, "cpu", "float64", batch=GRAD_F64_BATCH)
+        pipe = pipeline_from_numpy(pipeline_to_numpy(cpu.pipe), cfg,
+                                   device=device, dtype=torch.float64)
+        batch = tree_map(lambda t: t.to(device), cpu.batch)
+        c_cpu, g_cpu = settled_cost_grad(cpu.pipe, cpu.batch)
+        _, g = settled_cost_grad(pipe, batch)
+        # the CPU's own floor: every x0, the initial model's A, or r
+        # (exp(log r) = 1 + eps) moved up by one ulp
+        nudged = {
+            "x0": lambda: settled_cost_grad(cpu.pipe, cpu.batch._replace(
+                x0=up(cpu.batch.x0))),
+            "A": lambda: settled_cost_grad(cpu.pipe._replace(
+                model0=cpu.pipe.model0._replace(A=up(cpu.pipe.model0.A))),
+                cpu.batch),
+            "r": lambda: settled_cost_grad(cpu.pipe, cpu.batch, log_r=float(
+                torch.finfo(torch.float64).eps))}
+        nudged = {name: realize() for name, realize in nudged.items()}
+        floor = max(abs(gn - g_cpu) for _, gn in nudged.values())
+        cost_floor = max(abs(cn - c_cpu) for cn, _ in nudged.values())
+        tol = max(GRAD_F64_RTOL * abs(g_cpu), 10.0 * floor)
+        _, g_remat = settled_cost_grad(pipe, batch, remat=True)
+        c_hi, _ = settled_cost_grad(pipe, batch, FD_STEP, grad=False)
+        c_lo, _ = settled_cost_grad(pipe, batch, -FD_STEP, grad=False)
+        fd = (c_hi - c_lo) / (2.0 * FD_STEP)
+        # a central difference resolves no better than the cost's own
+        # round-off over the step
+        fd_tol = max(FD_RTOL * abs(g), 10.0 * cost_floor / FD_STEP)
+        conditioned = floor <= FD_COND * abs(g_cpu)
+        report = {"batch": GRAD_F64_BATCH, "steps": steps, "cost": c_cpu,
+                  "grad_card": g, "grad_card_remat": g_remat,
+                  "grad_cpu": g_cpu, "card_vs_cpu_rel": rel(g, g_cpu),
+                  "tol_rel": tol / abs(g_cpu),
+                  "cpu_floor_rel": {k: rel(gn, g_cpu)
+                                    for k, (_, gn) in nudged.items()},
+                  "remat_vs_stored_rel": rel(g_remat, g),
+                  "central_difference": fd, "fd_rel": rel(fd, g),
+                  "fd_tol_rel": fd_tol / abs(g), "fd_gated": conditioned}
+        reports[str(steps)] = report
+        print("phase 22 (b) f64 gradient " + json.dumps(report), flush=True)
+        if not (math.isfinite(g) and g != 0.0 and abs(g - g_cpu) <= tol):
+            fail(f"f64 gradient at {steps} steps: card {g} against the "
+                 f"CPU's {g_cpu} (tol {tol})")
+        if not abs(g_remat - g) <= GRAD_REMAT_RTOL * abs(g):
+            fail(f"f64 gradient at {steps} steps: remat {g_remat} "
+                 f"against {g}")
+        if conditioned:
+            fd_gated += 1
+            for name, v in (("stored", g), ("remat", g_remat)):
+                if not abs(fd - v) <= fd_tol:
+                    fail(f"f64 gradient ({name}) at {steps} steps: {v} "
+                         f"against the central difference {fd} (tol "
+                         f"{fd_tol})")
+    if not fd_gated:
+        fail("no f64 gradient was well conditioned enough for the "
+             "central-difference gate")
+    return reports
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_tune(device):
+    """Phase 22 (c): TUNE_ITERS Adam steps of
+    ``tune_weights_torch.tune`` on the card at TUNE_STEPS."""
+    tune_mod = example_module("tune_weights_torch")
+    cfg = tune_mod.tune_config(TUNE_STEPS)
+    trajectory = tune_mod.tune(cfg, TUNE_ITERS, device=device)
+    for rec in trajectory:
+        print(f"phase 22 (c) tune step {rec['iter']}: r={rec['r']:.6e} "
+              f"cost={rec['cost']:.6e} grad={rec['grad']:+.6e} "
+              f"{rec['ms']:.1f} ms", flush=True)
+        if not all(math.isfinite(rec[k]) for k in ("r", "cost", "grad")):
+            fail(f"tune step {rec['iter']}: {rec}")
+    return {"steps": TUNE_STEPS, "trajectory": trajectory}
+
+
+def phase_kernel_refuses(device):
+    """Phase 22 (d): a flagship loop on the kernel route given a log r
+    that requires grad raises ValueError, and B1 never launched."""
+    from koopmanx_torch.configs import flagship_config
+
+    run = config_loop(flagship_config(STEPS, HORIZON, "pallas"), device)
+    zero_counts()
+    try:
+        settled_cost_grad(run.pipe, run.batch)
+    except ValueError as err:
+        message = str(err)
+    else:
+        fail("the kernel route returned under autograd")
+    counts = read_counts()
+    if counts["box_admm"] != 0:
+        fail(f"the refused kernel route launched {counts}")
+    report = {"raised": "ValueError", "message": message, "launches": counts}
+    print("phase 22 (d) kernel route " + json.dumps(report), flush=True)
+    return report
+
+
+EXAMPLES = {
+    "duffing_comparison": ("duffing_comparison_torch", "compare", 1200, {
+        "off": ("koopman", {"mode": "off"}),
+        "rls_sqrt": ("koopman", {"mode": "rls_sqrt"})}),
+    "local_linear_comparison": ("local_linear_comparison_torch", "compare",
+                                800, {"koopman": ("koopman", {}),
+                                      "local_linear": ("local_linear", {})}),
+    "tank_delta_u": ("tank_delta_u_torch", "run", 1200, {
+        "loop": ("koopman", {})})}
+
+
+def example_loop_f64(module, kind: str, changes: dict, backend: str, device):
+    """One loop of an example in float64 through its own ``config`` on
+    ``backend``: a batch of EXAMPLE_ROWS scenarios, x_init and the initial
+    model's A as the example has them in row 0, x_init moved one ulp up and
+    down in rows 1-2, A in rows 3-4 (the local-linear loop has no A).
+    Returns its log (EXAMPLE_ROWS, T, ...)."""
+    import torch
+    from koopmanx_torch.engine.local_linear import run_local_linear_batch
+    from koopmanx_torch.engine.loop import run_batch
+    from koopmanx_torch.run import build_local_linear, build_pipeline, replicate
+
+    def rows(t, at):
+        out = [t] * EXAMPLE_ROWS
+        for i, target in zip(at, (9.0, -9.0)):
+            out[i] = torch.nextafter(t, torch.full_like(t, target))
+        return torch.stack(out)
+
+    cfg = module.config(qp_backend=backend, **changes)
+    cfg.dtype = "float64"
+    pipe = build_pipeline(cfg, device=device)
+    x0 = rows(pipe.x_init, (1, 2))
+    if kind == "local_linear":
+        loop, params = build_local_linear(cfg, device=device)
+        return run_local_linear_batch(loop, replicate(params, EXAMPLE_ROWS),
+                                      x0)[1]
+    model0 = replicate(pipe.model0, EXAMPLE_ROWS)
+    model0 = model0._replace(A=rows(pipe.model0.A, (3, 4)))
+    return run_batch(pipe.closed_loop, replicate(pipe.params, EXAMPLE_ROWS),
+                     x0, model0, replicate(pipe.rls0, EXAMPLE_ROWS))[1]
+
+
+def example_f64_gate(name: str, device):
+    """Phase 22 (e), float64: each loop of example ``name`` on the kernel
+    route against the plain route (:func:`example_loop_f64`, scenario 0),
+    each step within EARLY_TOL or ten times the plain route's own round-off
+    floor up to that step (rows 1-4 and the plain ADMM with its sums
+    reassociated: phase 15's rule), and its tracking MSE and steady-state
+    error within QUALITY_RTOL of the plain route's or ten times the same
+    realizations' change of that metric, where that is larger. Returns the
+    report."""
+    import torch
+    from koopmanx_torch.control import qp
+
+    module_name, _, _, loops = EXAMPLES[name]
+    module = example_module(module_name)
+    row = lambda log, i=0: type(log)(*(t[i] for t in log))
+    real = qp.box_admm
+    report = {}
+    for loop, (kind, changes) in loops.items():
+        logs = {}
+        try:
+            for label, backend, solver in (
+                    ("kernel", "pallas", real),
+                    ("reassociated", "pallas", box_admm_reassociated),
+                    ("plain", "xla", real)):
+                qp.box_admm = solver
+                (logs[label], secs) = timed(lambda: example_loop_f64(
+                    module, kind, changes, backend, device))
+                logs[label + "_s"] = secs
+        finally:
+            qp.box_admm = real
+        plain = logs["plain"].x
+        diff = lambda x: (x - plain[0]).abs().amax(-1)  # (T,)
+        floors = {"x0 +": diff(plain[1]), "x0 -": diff(plain[2]),
+                  "A0 +": diff(plain[3]), "A0 -": diff(plain[4]),
+                  "reassociated": diff(logs["reassociated"].x[0])}
+        floor = torch.stack(list(floors.values())).amax(0).cummax(0).values
+        bound = torch.clamp(10.0 * floor, min=EARLY_TOL)
+        dx = diff(logs["kernel"].x[0])
+        got, ref = (module.loop_metrics(row(logs[k]))
+                    for k in ("kernel", "plain"))
+        realized = [module.loop_metrics(row(logs["plain"], i))
+                    for i in range(1, EXAMPLE_ROWS)]
+        realized.append(module.loop_metrics(row(logs["reassociated"])))
+        quality = {}
+        for key, what in (("mse", "tracking MSE"),
+                          ("sse", "steady-state error")):
+            metric_floor = max(abs(m[key] - ref[key]) for m in realized)
+            quality[key] = {
+                "gap": abs(got[key] - ref[key]), "floor": metric_floor,
+                "tol": max(QUALITY_RTOL[what] * max(abs(ref[key]), 1e-9),
+                           10.0 * metric_floor)}
+        out = {"steps": dx.numel(), "dx_f64": float(dx.max()),
+               "floor_f64": float(floor.max()), "tol": EARLY_TOL,
+               "floor_f64_by_realization": {k: float(v.max())
+                                            for k, v in floors.items()},
+               "share_held_at_tol": float((bound == EARLY_TOL)
+                                          .double().mean()),
+               "steps_held_at_tol": int((bound == EARLY_TOL).sum()),
+               "worst_ratio_to_bound": float((dx / bound).max()),
+               "kernel_metrics": got, "plain_metrics": ref,
+               "quality": quality,
+               "s": {k: logs[k + "_s"]
+                     for k in ("kernel", "reassociated", "plain")}}
+        report[loop] = out
+        finite = all(math.isfinite(v) for v in [*got.values(),
+                                                *ref.values()])
+        if not (finite and bool(torch.isfinite(logs["kernel"].x).all())):
+            fail(f"{name} {loop} float64: not finite ({out})")
+        if not bool((dx <= bound).all()):
+            fail(f"{name} {loop}: float64 kernel and plain loops differ by "
+                 f"more than max({EARLY_TOL}, 10 x the round-off floor): "
+                 f"{out}")
+        for key, q in quality.items():
+            if not q["gap"] <= q["tol"]:
+                fail(f"{name} {loop} float64: {key} {got[key]} against the "
+                     f"plain route's {ref[key]} ({q})")
+    print(f"phase 22 (e) {name} float64 routes " + json.dumps(report),
+          flush=True)
+    return report
+
+
+def example_kernel_routes(device):
+    """Phase 22 (e), float32: each comparison example's compute function
+    as a user calls it on the card (the kernel route) at its default
+    steps, one launch a step (counted from 0 around each run), its metrics
+    finite."""
+    out = {}
+    for name, (module, fn_name, launches, _) in EXAMPLES.items():
+        fn = getattr(example_module(module), fn_name)
+        zero_counts()
+        result, secs = timed(lambda: fn(device=device))
+        got = read_counts()
+        if got != {"box_admm": launches, "fused_qp": 0, "fused_qp_soa": 0}:
+            fail(f"{name} launched {got}, want {launches}")
+        metrics = result["metrics"]
+        metrics = metrics if "mse" not in metrics else {"loop": metrics}
+        if not all(math.isfinite(v) for m in metrics.values()
+                   for v in m.values()):
+            fail(f"{name}: {metrics}")
+        out[name] = {"s": secs, "launches": launches, "metrics": metrics}
+        print(f"phase 22 (e) {name} " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def phase22_part(part: str, out_path: str) -> int:
+    """One part of phase 22 in a process of its own, which the script
+    starts beside its own work (``--phase22-part``): 'b'
+    (``phase_grad_f64``, its CPU gradients on PART_B_THREADS threads) or
+    the name of a comparison example (its ``example_f64_gate``); writes
+    the report to ``out_path`` as JSON."""
+    import torch
+    from koopmanx_torch.device import resolve_device
+
+    device = resolve_device(None)
+    if part == "b":
+        torch.set_num_threads(PART_B_THREADS)
+        result = phase_grad_f64(device)
+    else:
+        torch.set_num_threads(1)
+        result = example_f64_gate(part, device)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def phase_gradients(device, card: str):
+    """Phase 22: gradients through the closed loop and the examples. (a)
+    runs alone, for its times; then (b) and (e)'s float64 gates (one
+    process for each example) run in processes of their own beside (c),
+    (d) and (e)'s float32 runs here (the steps are host-bound: each
+    process keeps a core busy)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    zero_counts()
+    report = {"a": phase_grad_full_width(device)}
+    parts = ["b", *EXAMPLES]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {p: os.path.join(tmp, f"part_{p}.json") for p in parts}
+        logs = {p: open(os.path.join(tmp, f"part_{p}.log"), "w+")
+                for p in parts}
+        procs = {p: subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase22-part",
+             p, outs[p]], stdout=logs[p], stderr=subprocess.STDOUT)
+            for p in parts}
+        try:
+            report["c"] = phase_tune(device)
+            plain = read_counts()
+            if plain["box_admm"] != 0:
+                fail(f"the plain-route gradients launched {plain}")
+            report["d"] = phase_kernel_refuses(device)
+            kernel = example_kernel_routes(device)
+            for p in procs.values():
+                p.wait(timeout=PART_TIMEOUT)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = {}
+        for p, proc in procs.items():
+            logs[p].seek(0)
+            text = logs[p].read()
+            logs[p].close()
+            sys.stdout.write(text)
+            if proc.returncode != 0:
+                fail(f"phase 22 part ({p}) exited {proc.returncode}")
+            with open(outs[p]) as f:
+                results[p] = json.load(f)
+    report["b"] = results["b"]
+    report["e"] = {name: {"kernel_route_f32": k,
+                          "routes_f64": results[name]}
+                   for name, k in kernel.items()}
+    counts = {f"{name} example (phase 22)": k["launches"]
+              for name, k in kernel.items()}
+    counts["gradients and tune_weights example, plain route (phase 22)"] = (
+        plain["box_admm"])
+    report["phase_s"] = time.perf_counter() - t0
+    report["card"] = card
+    return counts, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -4158,6 +4680,10 @@ def main() -> int:
                         metavar=("RANK", "PORT", "OUT"),
                         help="run one rank of phase 20 (b) (the script "
                              "starts both itself)")
+    parser.add_argument("--phase22-part", nargs=2, metavar=("PART", "OUT"),
+                        help="run part b of phase 22 or the float64 gate "
+                             "of the comparison example PART (the script "
+                             "starts them itself)")
     opts = parser.parse_args()
     import torch
 
@@ -4172,6 +4698,8 @@ def main() -> int:
     if opts.two_rank_worker:
         rank, port, out = opts.two_rank_worker
         return two_rank_worker(int(rank), int(port), out)
+    if opts.phase22_part:
+        return phase22_part(*opts.phase22_part)
     from koopmanx_torch.device import resolve_device
     import threading
 
@@ -4414,6 +4942,24 @@ def main() -> int:
         "e": bench_report["e"]}, "card": card}), flush=True)
     print(f"phase 21: {bench_report['phase_s']:.1f} s; phases 1-21: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # ---- 22. gradients through the closed loop; the four examples ----
+    grad_counts, grad = phase_gradients(device, card)
+    print(json.dumps({"gradients": {
+        "a": {k: v for k, v in grad["a"].items() if k != "small"},
+        "a_small": grad["a"]["small"], "b": grad["b"],
+        "c": [{k: rec[k] for k in ("iter", "r", "cost", "grad", "ms")}
+              for rec in grad["c"]["trajectory"]],
+        "e": {name: {"kernel_route_s": v["kernel_route_f32"]["s"],
+                     "launches": v["kernel_route_f32"]["launches"],
+                     "f64": {loop: {k: r[k] for k in (
+                         "dx_f64", "floor_f64", "steps_held_at_tol",
+                         "worst_ratio_to_bound")}
+                         for loop, r in v["routes_f64"].items()}}
+              for name, v in grad["e"].items()}},
+        "card": card}), flush=True)
+    print(f"phase 22: {grad['phase_s']:.1f} s; phases 1-22: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
         "tank (phase 7)": tank_counts["box_admm"],
@@ -4434,7 +4980,8 @@ def main() -> int:
         **training_counts,
         **l3_counts,
         **parallel_counts,
-        **bench_counts}
+        **bench_counts,
+        **grad_counts}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

@@ -38,7 +38,13 @@ from typing import Mapping, Tuple
 import torch
 
 from . import configs as C
-from .device import DeviceLike, card_line, resolve_device, torch_dtype
+from .device import (
+    DeviceLike,
+    card_line,
+    default_qp_backend,
+    resolve_device,
+    torch_dtype,
+)
 from .engine.scenario import ScenarioBatch, sample_scenarios
 from .ops.box_admm import box_admm
 from .run import Pipeline, build_pipeline, run_scenarios
@@ -81,8 +87,8 @@ def bench_config(env: Mapping[str, str] = os.environ) -> C.RunConfig:
     cfg.mpc.qp_unroll = int(get("BENCH_QP_UNROLL",
                                 JAX_ONLY["BENCH_QP_UNROLL"]))
     cfg.mpc.qp_iters = int(get("BENCH_QP_ITERS", str(cfg.mpc.qp_iters)))
-    cfg.mpc.qp_backend = get("BENCH_QP_BACKEND",
-                             "xla" if _on_cpu(env) else "pallas")
+    cfg.mpc.qp_backend = get("BENCH_QP_BACKEND", default_qp_backend(
+        "cpu" if _on_cpu(env) else None))
     cfg.mpc.qp_kkt_bf16 = bool(int(get("BENCH_KKT_BF16", "0")))
     cfg.mpc.qp_kkt_refine = int(get("BENCH_KKT_REFINE", "0"))
     cfg.mpc.qp_kkt_block = int(get("BENCH_KKT_BLOCK",

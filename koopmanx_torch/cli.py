@@ -27,6 +27,7 @@ import sys
 import time
 
 from . import configs as C
+from .device import default_qp_backend
 
 ROUTE_HELP = (
     "the box QP runs through the box-ADMM CUDA kernel on the card "
@@ -73,7 +74,7 @@ def _config(args):
         cfg = C.PRESETS[args.preset]()
     if args.steps:
         cfg.steps = args.steps
-    cfg.mpc.qp_backend = "xla" if args.cpu else "pallas"
+    cfg.mpc.qp_backend = default_qp_backend("cpu" if args.cpu else None)
     if getattr(args, "x64", False):
         cfg.dtype = "float64"
     return _apply_overrides(cfg, args.override or [])

@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
-from ..ops.box_admm import box_admm, box_admm_reference
+from ..ops.box_admm import box_admm, box_admm_reference, refuse_autograd
 from ..ops.linalg import spd_inverse
 from ..types import QPData, QPSolution
 
@@ -159,7 +159,9 @@ def solve_box_qp_batch_kernel(p: Tensor, q: Tensor, lo: Tensor, hi: Tensor,
     (counterpart of ``solve_box_qp_batch_pallas``): rho, the KKT inverse
     (rounded through bfloat16 under ``kkt_bf16``) and the residuals here,
     the iterations in :func:`box_admm`, which launches the CUDA kernel for
-    CUDA tensors."""
+    CUDA tensors. Under autograd it raises ``ValueError`` before any of
+    that, on every device: the kernel route has no gradient."""
+    refuse_autograd(p, q, lo, hi, x0, y0)
     c = lambda t: None if t is None else t.contiguous()
     return _solve(box_admm, p, q.contiguous(), lo.contiguous(),
                   hi.contiguous(), cfg, c(x0), c(y0))

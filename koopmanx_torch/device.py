@@ -31,6 +31,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def default_qp_backend(device: DeviceLike = None) -> str:
+    """The box QP's route on ``device`` (None: the card): the box-ADMM
+    kernel (``'pallas'``) on the card, the plain version (``'xla'``) on
+    the CPU."""
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    return "xla" if on_cpu else "pallas"
+
+
 def torch_dtype(name: str) -> torch.dtype:
     try:
         return _DTYPES[name]

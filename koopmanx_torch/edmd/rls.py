@@ -200,21 +200,23 @@ class SqrtRLSState(NamedTuple):
 
 def chol_rank1_update(r: Tensor, v: Tensor) -> Tensor:
     """Cholesky factor of ``R'R + v v'`` by d Givens rotations, batched:
-    r (B, d, d), v (B, d). The zero column (rho = 0) keeps its row."""
+    r (B, d, d), v (B, d). The zero column (rho = 0) keeps its row. The
+    rotated rows are stacked at the end, out of place, so autograd can
+    differentiate through the update."""
     d = r.shape[-1]
-    r = r.clone()
+    rows = list(r.unbind(-2))
     for k in range(d):
-        rkk = r[..., k, k]
+        row = rows[k]
+        rkk = row[..., k]
         vk = v[..., k]
         rho = torch.sqrt(rkk * rkk + vk * vk)
         safe = rho > 0
         den = torch.where(safe, rho, torch.ones_like(rho))
         c = torch.where(safe, rkk / den, torch.ones_like(rho))
         s = torch.where(safe, vk / den, torch.zeros_like(rho))
-        row = r[..., k, :].clone()
-        r[..., k, :] = c[..., None] * row + s[..., None] * v
+        rows[k] = c[..., None] * row + s[..., None] * v
         v = c[..., None] * v - s[..., None] * row
-    return r
+    return torch.stack(rows, dim=-2)
 
 
 def sqrt_rls_init(nlift: int, m: int, n: int, c_ab: float = 1e4,

@@ -154,6 +154,11 @@ class EngineConfig:
     terminal_mode: str = "dare"  # 'dare' | 'lmi' (the Revise_2 LMI)
     state_bounds: bool = False
     drift_norm: str = "fro"  # 'spectral'; any other kind is Frobenius
+    # under autograd, recompute each step in the backward pass
+    # (torch.utils.checkpoint) instead of keeping its activations: the
+    # graph then holds one carry a step. No effect on a run that records
+    # no graph.
+    remat: bool = False
 
     @property
     def qp_config(self) -> ADMMConfig:

@@ -12,14 +12,17 @@ every tensor carries the scenario axis first and time is a Python loop.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
 from ..control.terminal import quad_form
 from ..lifts.base import Dictionary
 from ..systems.base import System, as_params, make_step, make_switch_schedule
+from ..tree import tree_leaves
 from ..types import LinearModel
 from .core import (
     EngineConfig,
@@ -34,7 +37,7 @@ from .core import (
 )
 
 __all__ = ["EngineConfig", "MPCParams", "LoopCarry", "StepLog",
-           "make_closed_loop", "run_batch"]
+           "make_closed_loop", "records_graph", "run_batch"]
 
 
 class LoopCarry(NamedTuple):
@@ -129,6 +132,15 @@ def revise2_monitors(dictionary: Dictionary, cfg: EngineConfig,
     )
 
 
+def records_graph(*inputs) -> bool:
+    """Whether the loop records the autograd graph: grad mode is on and
+    some tensor leaf of ``inputs`` requires grad. Otherwise it runs under
+    ``torch.inference_mode()``."""
+    return torch.is_grad_enabled() and any(
+        isinstance(leaf, Tensor) and leaf.requires_grad
+        for leaf in tree_leaves(inputs))
+
+
 def make_closed_loop(system: System, dictionary: Dictionary,
                      cfg: EngineConfig, ref_fn: Callable[[int], Tensor]):
     """Build ``closed_loop(params, x0, model0, rls0, theta0=None,
@@ -141,7 +153,19 @@ def make_closed_loop(system: System, dictionary: Dictionary,
     ``step_offset`` numbers its steps from there, so a run cut into
     chunks is the uncut run (``koopmanx/engine/loop.py:279-319``).
     ``closed_loop.initial_carry(params, x0, model0, rls0, u0=None)`` is
-    the carry a run starts from."""
+    the carry a run starts from.
+
+    Autograd: the loop records the graph, as ``jax.grad`` differentiates
+    the JAX loop, when :func:`records_graph` says so (grad mode on and a
+    tensor leaf of ``params``, ``x0``, ``model0``, ``rls0``, the plant
+    parameters, ``u0`` or ``carry0`` requires grad); otherwise it runs
+    under ``torch.inference_mode()``, as every forward-only caller does.
+    Under ``cfg.remat`` each recorded step is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant), the counterpart of
+    ``jax.checkpoint(body)`` (``koopmanx/engine/loop.py:319-320``): the
+    backward pass recomputes it from its carry. The kernel route
+    (``qp_backend='pallas'``) raises ``ValueError`` under autograd; the
+    differentiable route is ``'xla'``, as in the JAX package."""
     plant_step = make_step(system, cfg.h, cfg.integrator)
     m = system.m
     control_solve = make_control_solver(cfg, ref_fn, m, dictionary)
@@ -230,10 +254,15 @@ def make_closed_loop(system: System, dictionary: Dictionary,
         batch = x0.shape[0]
         carry = (initial_carry(params, x0, model0, rls0, u0)
                  if carry0 is None else carry0)
+        grad = records_graph(params, x0, model0, rls0, th0, th1, u0, carry0)
+        step_fn = one_step
+        if grad and cfg.remat:
+            step_fn = lambda *args: checkpoint(one_step, *args,
+                                               use_reentrant=False)
         logs = []
-        with torch.inference_mode():
+        with (contextlib.nullcontext() if grad else torch.inference_mode()):
             for step in range(step_offset, step_offset + cfg.steps):
-                carry, log = one_step(params, carry, step, theta_sched)
+                carry, log = step_fn(params, carry, step, theta_sched)
                 logs.append(log)
         stacked = {k: torch.stack([log[k] for log in logs], dim=1)
                    for k in logs[0]}

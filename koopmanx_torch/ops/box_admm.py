@@ -10,7 +10,9 @@ bound and design).
   iteration as batched tensor ops.
 - :func:`box_admm` dispatches on the tensors' device: a CPU tensor goes to
   the plain version, a CUDA tensor to the kernel, or the call raises.
-  ``box_admm.launches`` counts kernel launches.
+  ``box_admm.launches`` counts kernel launches. It has no gradient, as the
+  JAX package's Pallas route has none: under autograd it raises
+  (:func:`refuse_autograd`) on every device.
 - :func:`launch_shape` says how the kernel fills the card at a shape.
 
 Signature of both: ``(minv, q, lo, hi, x0, y0, rho, iters, sigma, alpha)
@@ -103,6 +105,19 @@ def _check(minv: Tensor, vecs, rho: Tensor, iters: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def refuse_autograd(*tensors) -> None:
+    """Raise ``ValueError`` where grad mode is on and one of ``tensors``
+    (None skipped) requires grad: the kernel route has no gradient, as the
+    JAX package's Pallas route has none. The differentiable route is the
+    plain one, ``qp_backend='xla'``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(
+            "the box-ADMM kernel route has no gradient (nor has the JAX "
+            "package's Pallas route): differentiate the closed loop on "
+            "qp_backend='xla'")
+
+
 def box_admm(minv: Tensor, q: Tensor, lo: Tensor, hi: Tensor, x0: Tensor,
              y0: Tensor, rho: Tensor, iters: int = 60, sigma: float = 1e-6,
              alpha: float = 1.6) -> BoxADMMOut:
@@ -111,7 +126,10 @@ def box_admm(minv: Tensor, q: Tensor, lo: Tensor, hi: Tensor, x0: Tensor,
     On CPU tensors this is :func:`box_admm_reference`. On CUDA tensors it
     launches the kernel on the current stream, or raises on a wrong
     device, dtype, shape or contiguity, or a failed launch; it never falls
-    back."""
+    back. On every device it raises ``ValueError`` under autograd
+    (:func:`refuse_autograd`) rather than return a result without a
+    graph."""
+    refuse_autograd(minv, q, lo, hi, x0, y0, rho)
     if minv.device.type == "cpu":
         return box_admm_reference(minv, q, lo, hi, x0, y0, rho, iters,
                                   sigma, alpha)

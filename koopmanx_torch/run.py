@@ -8,7 +8,8 @@ state: the windowed estimator's prefilled ring, compressed or not, and the
 Woodbury lane's carried statistics; the storage method's training Grams; the
 SM, Gram-carry and square-root RLS priors, or their warm starts from the
 training Grams), ``run_single`` :415 (one scenario as a batch of one) and
-``run_resumable`` :438-499 (the loop in checkpointed chunks).
+``run_resumable`` :438-499 (the loop in checkpointed chunks);
+``with_engine_config`` rebuilds a pipeline's loop on other engine fields.
 """
 from __future__ import annotations
 
@@ -459,6 +460,19 @@ def run_single(pipe: Pipeline, theta0=None, theta1=None):
     return _squeeze(carry), _squeeze(log)
 
 
+def with_engine_config(pipe: Pipeline, **changes) -> Pipeline:
+    """``pipe`` with the fields ``changes`` of its ``EngineConfig``
+    replaced and its closed loop rebuilt on them (e.g. ``remat=True``, or
+    another ``steps``), as the JAX package rebuilds ``make_closed_loop``
+    on ``dataclasses.replace(pipe.engine_cfg, ...)``."""
+    cfg = dataclasses.replace(pipe.engine_cfg, **changes)
+    loop = make_closed_loop(
+        get_system(pipe.config.system), pipe.dictionary, cfg,
+        ref_fn_for(pipe.config, pipe.params.q_block.shape[-1], pipe.device,
+                   pipe.dictionary))
+    return pipe._replace(engine_cfg=cfg, closed_loop=loop)
+
+
 def run_resumable(pipe: Pipeline, total_steps: int, chunk_steps: int,
                   checkpoint_path: Optional[str] = None,
                   resume: bool = False):
@@ -470,11 +484,7 @@ def run_resumable(pipe: Pipeline, total_steps: int, chunk_steps: int,
     logs joined along time."""
     from .eval.persist import load_pytree, save_pytree
 
-    cfg = dataclasses.replace(pipe.engine_cfg, steps=chunk_steps)
-    loop = make_closed_loop(
-        get_system(pipe.config.system), pipe.dictionary, cfg,
-        ref_fn_for(pipe.config, pipe.params.q_block.shape[-1], pipe.device,
-                   pipe.dictionary))
+    loop = with_engine_config(pipe, steps=chunk_steps).closed_loop
     args = _as_batch_of_one(pipe)
     carry, start = None, 0
     if resume and checkpoint_path and os.path.exists(checkpoint_path):

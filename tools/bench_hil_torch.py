@@ -36,11 +36,12 @@ def build(preset: str, steps: int, cpu: bool, dtype: str = None):
     """The preset's config (the kernel route on the card, the plain one on
     the CPU) and its pipeline on that device."""
     from koopmanx_torch import configs as C
+    from koopmanx_torch.device import default_qp_backend
     from koopmanx_torch.run import build_pipeline
 
     cfg = C.PRESETS[preset]()
     cfg.steps = steps
-    cfg.mpc.qp_backend = "xla" if cpu else "pallas"
+    cfg.mpc.qp_backend = default_qp_backend("cpu" if cpu else None)
     if dtype:
         cfg.dtype = dtype
     return cfg, build_pipeline(cfg, device="cpu" if cpu else None)

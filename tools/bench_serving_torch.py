@@ -60,13 +60,14 @@ VARIANTS = (
 def build(device, update="rls_sqrt", qp_iters=60, horizon=20):
     """``tools/bench_serving.py``'s serving pipeline on ``device``."""
     from koopmanx_torch import configs as C
+    from koopmanx_torch.device import default_qp_backend
     from koopmanx_torch.run import build_pipeline
 
     cfg = C.duffing_nn_preset()
     cfg.steps = 10
     cfg.mpc.horizon = horizon
     cfg.mpc.qp_iters = qp_iters
-    cfg.mpc.qp_backend = "pallas" if device.type == "cuda" else "xla"
+    cfg.mpc.qp_backend = default_qp_backend(device)
     cfg.update.mode = update
     cfg.data = C.DataConfig(n_step=25, n_traj=25)
     cfg.lift = C.LiftConfig(kind="mlp", nlift=8)

@@ -56,6 +56,7 @@ KNOBS = (
 def config(env):
     """The preset with the knobs of ``env``, the route of its device."""
     from koopmanx_torch import configs as C
+    from koopmanx_torch.device import default_qp_backend
 
     preset = env.get("PRESET", "tank")
     cfg = dict(C.PRESETS, revise2=C.revise2_duffing_preset)[preset]()
@@ -68,8 +69,8 @@ def config(env):
             setattr(getattr(cfg, section), field, cast(env[knob]))
     if env.get("SWITCH"):
         cfg.switch_step = int(env["SWITCH"])
-    cfg.mpc.qp_backend = env.get("QP_BACKEND",
-                                 "xla" if env.get("CPU") else "pallas")
+    cfg.mpc.qp_backend = env.get("QP_BACKEND", default_qp_backend(
+        "cpu" if env.get("CPU") else None))
     return preset, cfg
 
 
