@@ -360,15 +360,35 @@ Phases, each of which fails the run on error:
    and (e)'s float64 gates (one process for each example) then run in
    processes of their own (this script with ``--phase22-part``) beside
    (c), (d) and (e)'s float32 runs: each step is host-bound, so each
-   process keeps one core busy.
+   process keeps one core busy;
+23. the last user tools, through their ``main`` functions: (a)
+   ``tools/bench_terminal_torch.py`` at its defaults (512 scenarios, 30
+   steps of the per-step DARE terminal synthesis) with the hand-written
+   Gauss-Jordan routines and with ``USE_LAPACK=1`` (the library's
+   inverse and solve at the JAX tool's six call sites): one launch a
+   timed step, finite, both ms/step printed; the library variant held to
+   the Gauss-Jordan one in float64 at 256 scenarios over 16 steps by
+   phase 15's rule (1e-8 or ten times the one-ulp floor of x0 and of the
+   initial A); (b) ``tools/train_reference_scale_torch.py`` at the
+   reference's width for 2 epochs under the cosine schedule, with the
+   validation selection every epoch, into a temporary directory: finite
+   losses, the held rate the schedule's at the held count, the exported
+   encoder read back by ``lifts/io.py::load_mat_mlp``, ms per optimizer
+   step; (c) ``tools/eval_encoder_both_metrics_torch.py`` on the duffing
+   artifacts at 300 steps: one launch a step, finite, |u| <= 2,
+   ``open_rmse`` equal to the same function's value on the CPU; (d)
+   ``tools/bench_multihost_torch.py`` at its defaults: P = 1 (NCCL), the
+   co-run pair and P = 2 gloo ranks sharing the card, finite, one launch
+   a timed step on each rank, every setting's ranks within 300 s;
+   solves/s, the weak-scaling efficiency and the Gram all-reduce's µs.
 
 Run with no arguments it needs one card. Prints the kernels JSON line, a
 slice timing JSON line, a tank timing JSON line, an rbf128 timing JSON
 line, a tank_mimo timing JSON line, a VDP JSON line, a Revise_2 JSON
 line, a serving JSON line (phase 16's latencies), a control-laws JSON
 line (phase 17), a training JSON line (phase 18), a phase 19 JSON line,
-a phase 20 JSON line, a phase 21 JSON line, a phase 22 JSON line, the
-card line
+a phase 20 JSON line, a phase 21 JSON line, a phase 22 JSON line, a
+phase 23 JSON line, the card line
 (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``) and, as
 the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -671,6 +691,24 @@ EXAMPLE_ROWS = 5
 # (b) and (e)'s float64 gates run in processes of their own beside the
 # rest of phase 22; the CPU gradients of (b) on PART_B_THREADS threads
 PART_B_THREADS, PART_TIMEOUT = 4, 600
+# phase 23: the last user tools through their main functions. (a)
+# tools/bench_terminal_torch.py at its defaults (512 scenarios, 30 steps),
+# the Gauss-Jordan routines and then the library's (USE_LAPACK=1), each
+# launching B1 once a step of its timed runs; the library variant held to
+# the Gauss-Jordan one in float64 on one pipeline over LOOP_EARLY_STEPS at
+# EARLY_BATCH scenarios by phase 15's rule (EARLY_TOL, or ten times the
+# Gauss-Jordan variant's own change when x0 or the initial A moves one
+# ulp up or down). (b) tools/train_reference_scale_torch.py at the
+# reference's width, cut from 20 epochs to TOOL_TRAIN_EPOCHS, with the
+# cosine schedule to 1 % and the validation selection every epoch, into a
+# temporary directory. (c) tools/eval_encoder_both_metrics_torch.py on the
+# duffing artifacts at TOOL_EVAL_STEPS, one launch a step, |u| within the
+# preset's box, open_rmse the same function's value on the CPU. (d)
+# tools/bench_multihost_torch.py at its defaults (64 scenarios a rank, 40
+# steps, 5 reps; P = 1, the co-run pair, P = 2 gloo ranks sharing the
+# card), each setting's ranks within TOOL_RANK_TIMEOUT seconds
+TOOL_TRAIN_EPOCHS, TOOL_COSINE_FINAL, TOOL_LR = 2, 0.01, 1e-3
+TOOL_EVAL_STEPS, TOOL_RANK_TIMEOUT, TOOL_MULTIHOST_REPS = 300, 300, 5
 
 
 def fail(msg: str) -> None:
@@ -4671,6 +4709,190 @@ def phase_gradients(device, card: str):
     return counts, report
 
 
+def terminal_f64_gate(terminal, device):
+    """Phase 23 (a)'s float64 gate: the terminal bench's config at
+    EARLY_BATCH scenarios over LOOP_EARLY_STEPS on one pipeline, the
+    library routines against the Gauss-Jordan ones, each scenario and step
+    within EARLY_TOL or ten times the Gauss-Jordan loop's own change from
+    one ulp of x0 or of the initial A (up, then down)."""
+    import torch
+    from koopmanx_torch.run import build_pipeline, run_scenarios
+
+    cfg = terminal.config(LOOP_EARLY_STEPS, device)
+    cfg.dtype = "float64"
+    pipe = build_pipeline(cfg, device=device)
+    sc = terminal.scenarios(EARLY_BATCH, device, torch.float64)
+    zero_counts()
+    gj = run_scenarios(pipe, sc)[1].x
+    with terminal.library_routines():
+        lib = run_scenarios(pipe, sc)[1].x
+    launches = read_counts()["box_admm"]
+    diff = lambda x: (x - gj).abs().amax(-1)  # (B, T)
+    floors = []
+    for target in (9.0, -9.0):
+        x0 = torch.nextafter(sc.x0, torch.full_like(sc.x0, target))
+        floors.append(diff(run_scenarios(pipe, sc._replace(x0=x0))[1].x))
+        a0 = pipe.model0.A
+        a0 = torch.nextafter(a0, torch.full_like(a0, target))
+        moved = pipe._replace(model0=pipe.model0._replace(A=a0))
+        floors.append(diff(run_scenarios(moved, sc)[1].x))
+    floor = torch.stack(floors).amax(0).cummax(dim=1).values
+    bound = torch.clamp(10.0 * floor, min=EARLY_TOL)
+    dx = diff(lib)
+    report = {"batch": EARLY_BATCH, "steps": LOOP_EARLY_STEPS,
+              "dx_f64": float(dx.max()), "floor_f64": float(floor.max()),
+              "tol": EARLY_TOL,
+              "share_held_at_tol": float((bound == EARLY_TOL).double()
+                                         .mean()),
+              "worst_ratio_to_bound": float((dx / bound).max()),
+              "launches_gj_and_library": launches}
+    if launches != 2 * LOOP_EARLY_STEPS:
+        fail(f"phase 23 (a) float64: {launches} launches in two runs of "
+             f"{LOOP_EARLY_STEPS} steps")
+    if not bool(torch.isfinite(lib).all()) or not bool((dx <= bound).all()):
+        fail(f"phase 23 (a): the library routines' float64 loop differs "
+             f"from the Gauss-Jordan one: {report}")
+    return report
+
+
+def cosine_rate(lr: float, total: int, alpha: float, t: int) -> float:
+    """optax.cosine_decay_schedule(lr, total, alpha) at update t."""
+    t = min(t, total)
+    return lr * ((1 - alpha) * (0.5 * (1 + math.cos(math.pi * t / total)))
+                 + alpha)
+
+
+def phase_tools(device, card: str):
+    """Phase 23: the four tools, (a)-(d). Returns the launches by path and
+    the phase's report."""
+    import tempfile
+
+    import torch
+    from koopmanx_torch.lifts.io import load_mat_mlp
+    from koopmanx_torch.systems.library import get_system
+
+    t0 = time.perf_counter()
+    counts, report = {}, {"card": card}
+
+    # (a) the terminal-synthesis bench, both variants, then the f64 gate
+    t = time.perf_counter()
+    terminal = tool_module("bench_terminal_torch")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("BENCH_BATCH", "BENCH_STEPS", "BENCH_DEVICE")}
+    report["a"] = {}
+    for lapack in ("0", "1"):
+        out = quietly(terminal.main, {**env, "USE_LAPACK": lapack})
+        label = "library" if lapack == "1" else "gauss_jordan"
+        if (out["box_admm_launches"] != out["steps_run"]
+                or out["steps_run"] != 3 * out["steps"] or not out["finite"]
+                or (out["batch"], out["steps"]) != (512, 30)
+                or not math.isfinite(out["per_step_ms"])):
+            fail(f"phase 23 (a) bench_terminal ({label}): {out}")
+        report["a"][label] = out
+        counts[f"bench_terminal {label}, 3 timed runs (phase 23)"] = (
+            out["box_admm_launches"])
+    report["a"]["library_over_gauss_jordan_per_step"] = (
+        report["a"]["library"]["per_step_ms"]
+        / report["a"]["gauss_jordan"]["per_step_ms"])
+    report["a"]["f64"] = terminal_f64_gate(terminal, device)
+    report["a"]["phase_s"] = time.perf_counter() - t
+    print("phase 23 (a) bench_terminal " + json.dumps(report["a"]),
+          flush=True)
+
+    # (b) training at the reference's width under the cosine schedule
+    t = time.perf_counter()
+    train = tool_module("train_reference_scale_torch")
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        rec = quietly(train.main, [
+            "--epochs", str(TOOL_TRAIN_EPOCHS), "--cosine-final",
+            str(TOOL_COSINE_FINAL), "--val-select", "--eval-every", "1",
+            "--out-dir", tmp])
+        if read_counts()["box_admm"] != 0:
+            fail(f"phase 23 (b): training launched {read_counts()}")
+        enc = load_mat_mlp(rec["artifact"])
+        files = sorted(os.listdir(tmp))
+    total = TOOL_TRAIN_EPOCHS * rec["steps_per_epoch"]
+    want_lr = cosine_rate(TOOL_LR, total, TOOL_COSINE_FINAL,
+                          rec["schedule_count"])
+    losses = [rec["final_epoch"]["loss"], *rec["fresh_losses"].values(),
+              *(v for r in rec["openloop_rmse_500"].values()
+                for v in r.values())]
+    shapes = [tuple(w.shape) for w, _ in enc]
+    if (not all(math.isfinite(v) for v in losses)
+            or rec["lr_last"] != want_lr
+            or rec["schedule_count"] % rec["steps_per_epoch"]
+            or not 0 < rec["schedule_count"] <= total
+            or shapes != [(100, 2), (100, 100), (100, 100), (8, 100)]
+            or files != [f"duffing_kmae_{rec['tag']}_decoder.mat",
+                         f"duffing_kmae_{rec['tag']}_encoder.mat"]):
+        fail(f"phase 23 (b) train_reference_scale: {rec}, rate "
+             f"{rec['lr_last']} against {want_lr}, encoder {shapes}, "
+             f"files {files}")
+    report["b"] = {k: rec[k] for k in (
+        "snapshots", "epochs", "steps_per_epoch", "train_wall_s",
+        "final_epoch", "fresh_losses", "openloop_rmse_500",
+        "optimizer_steps", "schedule_count", "lr_last",
+        "ms_per_optimizer_step", "device")}
+    report["b"]["lr_schedule"] = want_lr
+    report["b"]["phase_s"] = time.perf_counter() - t
+    print("phase 23 (b) train_reference_scale " + json.dumps(report["b"]),
+          flush=True)
+
+    # (c) the two-metric scoring of the duffing artifacts
+    t = time.perf_counter()
+    ev = tool_module("eval_encoder_both_metrics_torch")
+    zero_counts()
+    rows = quietly(ev.main, ["--steps", str(TOOL_EVAL_STEPS)])
+    launches = read_counts()["box_admm"]
+    scored = [r for r in rows if "error" not in r]
+    system = get_system("duffing")
+    data, val = ev.protocol_snapshots(system)
+    paths = {os.path.basename(p): p for p in ev.default_artifacts("duffing")}
+    for r in scored:
+        cpu = round(ev.openloop_rmse(system, paths.get(
+            r["artifact"], os.path.join(ROOT, ev.REF_WEIGHTS["duffing"])),
+            data, val), 5)
+        if (not r["finite"] or not r["u_abs_max"] <= 2.0
+                or r["open_rmse"] != cpu
+                or not math.isfinite(r["closed_sse"])):
+            fail(f"phase 23 (c) eval_encoder_both_metrics: {r}, open_rmse "
+                 f"on the CPU {cpu}")
+    if not scored or launches != TOOL_EVAL_STEPS * len(scored):
+        fail(f"phase 23 (c): {launches} launches for {len(scored)} "
+             f"artifacts at {TOOL_EVAL_STEPS} steps")
+    counts[f"eval_encoder_both_metrics, {len(scored)} artifacts (phase 23)"
+           ] = launches
+    report["c"] = {"rows": rows, "launches": launches,
+                   "phase_s": time.perf_counter() - t}
+    print("phase 23 (c) eval_encoder_both_metrics " + json.dumps(report["c"]),
+          flush=True)
+
+    # (d) the multi-process harness: P = 1, the co-run pair, P = 2 on gloo
+    t = time.perf_counter()
+    mh = tool_module("bench_multihost_torch")
+    out = quietly(mh.main, ["--rank-timeout", str(TOOL_RANK_TIMEOUT)])
+    settings = {"single_process": 1, "independent_corun": 2,
+                "multi_process": 1}  # ranks whose launches are reported
+    for key, ranks in settings.items():
+        rec = out[key]
+        want = ranks * TOOL_MULTIHOST_REPS * rec["steps"]
+        if (not rec["finite"] or not math.isfinite(rec["solves_per_s"])
+                or rec["box_admm_launches"] != want):
+            fail(f"phase 23 (d) bench_multihost {key}: {rec}, launches "
+                 f"against {want}")
+        counts[f"bench_multihost {key} (phase 23)"] = rec["box_admm_launches"]
+    if (out["multi_process"]["backend"], out["single_process"]["backend"]
+            ) != ("gloo", "nccl"):
+        fail(f"phase 23 (d): backends {out['multi_process']['backend']} "
+             f"(P = 2), {out['single_process']['backend']} (P = 1)")
+    report["d"] = {**out, "phase_s": time.perf_counter() - t}
+    print("phase 23 (d) bench_multihost " + json.dumps(report["d"]),
+          flush=True)
+    report["phase_s"] = time.perf_counter() - t0
+    return counts, report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent-fused-qp", metavar="LIB",
@@ -4960,6 +5182,32 @@ def main() -> int:
         "card": card}), flush=True)
     print(f"phase 22: {grad['phase_s']:.1f} s; phases 1-22: "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    # ---- 23. the last user tools: the terminal-synthesis bench and its
+    # library A/B, training at the reference's scale, the two-metric
+    # scoring, the multi-process harness
+    tool_counts, tools = phase_tools(device, card)
+    print(json.dumps({"tools": {
+        "bench_terminal": {
+            label: {k: tools["a"][label][k] for k in (
+                "per_step_ms", "solves_per_s", "box_admm_launches")}
+            for label in ("gauss_jordan", "library")},
+        "library_over_gauss_jordan_per_step": tools["a"][
+            "library_over_gauss_jordan_per_step"],
+        "terminal_f64": tools["a"]["f64"],
+        "train_ms_per_optimizer_step": tools["b"]["ms_per_optimizer_step"],
+        "train_lr_last": tools["b"]["lr_last"],
+        "eval": [{k: r.get(k) for k in ("artifact", "open_rmse",
+                                        "closed_sse")}
+                 for r in tools["c"]["rows"]],
+        "multihost": {
+            "solves_per_s": {k: tools["d"][k]["solves_per_s"] for k in (
+                "single_process", "independent_corun", "multi_process")},
+            "weak_scaling_efficiency": tools["d"]["weak_scaling_efficiency"],
+            "gram_psum_us": {k: tools["d"][k]["gram_psum_us"] for k in (
+                "single_process", "multi_process")}},
+        "card": card}}), flush=True)
+    print(f"phase 23: {tools['phase_s']:.1f} s; phases 1-23: "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     entry["launches_by_path"] = {
         "flagship (phase 3)": launches,
         "tank (phase 7)": tank_counts["box_admm"],
@@ -4981,7 +5229,8 @@ def main() -> int:
         **l3_counts,
         **parallel_counts,
         **bench_counts,
-        **grad_counts}
+        **grad_counts,
+        **tool_counts}
     print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
           flush=True)
     print(card, flush=True)

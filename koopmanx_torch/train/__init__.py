@@ -3,6 +3,8 @@ from .kmae import (
     KMAEConfig,
     KMAEParams,
     KMAEState,
+    cosine_adam,
+    cosine_decay,
     differentiable_edmd,
     init_state,
     kmae_loss,

@@ -11,7 +11,8 @@ minimizes
 
 over multi-step rollouts of ``pred_horizon`` steps on a minibatch of
 trajectory windows (:503-538); past ``rec_only_after_epoch`` only L_rec
-is kept (:549-552). Adam, lr 1e-3 (:58).
+is kept (:549-552). Adam, lr 1e-3 (:58), or Adam on a cosine-decayed
+rate (:func:`cosine_adam`, ``optax.adam(optax.cosine_decay_schedule(...))``).
 
 Where JAX scans the horizon, this loops over it in Python on batched
 tensors; where JAX returns a new state from each step, the step here
@@ -30,7 +31,8 @@ averaged gradient is the whole batch's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional
+import math
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -71,24 +73,69 @@ class KMAEParams(NamedTuple):
         return [t for mlp in self for pair in mlp.params() for t in pair]
 
 
+Schedule = torch.optim.lr_scheduler.LRScheduler
+
+
 class KMAEState(NamedTuple):
     params: KMAEParams
     opt_state: torch.optim.Optimizer  # over ``params.leaves()``, in order
     a_prev: Tensor
     b_prev: Tensor
+    # the learning-rate schedule of ``opt_state``, stepped once after each
+    # optimizer step (optax's ``ScaleByScheduleState``), or None
+    schedule: Optional[Schedule] = None
 
 
-# ``params -> optimizer``, any torch optimizer; a checkpoint (the JAX
-# package's ``.npz``, whose optimizer leaves are optax Adam's) needs an
-# Adam or AdamW without amsgrad (``train/state.py``)
-OptimizerFactory = Callable[[List[Tensor]], torch.optim.Optimizer]
+# ``params -> optimizer``, any torch optimizer, or ``params -> (optimizer,
+# schedule)``; a checkpoint (the JAX package's ``.npz``, whose optimizer
+# leaves are optax Adam's) needs an Adam or AdamW without amsgrad and no
+# schedule (``train/state.py``)
+OptimizerFactory = Callable[
+    [List[Tensor]],
+    Union[torch.optim.Optimizer, Tuple[torch.optim.Optimizer, Schedule]]]
+
+
+def _adam(params, lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
 def adam(cfg: KMAEConfig) -> OptimizerFactory:
     """``optax.adam(cfg.lr)``'s update rule: b1 0.9, b2 0.999, eps 1e-8
     outside the square root; optax's ``count`` is torch's ``step``."""
-    return lambda params: torch.optim.Adam(params, lr=cfg.lr,
-                                           betas=(0.9, 0.999), eps=1e-8)
+    return lambda params: _adam(params, cfg.lr)
+
+
+def cosine_decay(decay_steps: int, alpha: float = 0.0
+                 ) -> Callable[[int], float]:
+    """The multiplier of ``optax.cosine_decay_schedule(init, decay_steps,
+    alpha)`` at update t (counted from 0), in optax's order of operations:
+    ``(1 - alpha) * 0.5 * (1 + cos(pi * min(t, T) / T)) + alpha``."""
+    if not decay_steps > 0:
+        raise ValueError(f"the cosine decay needs positive decay_steps, got "
+                         f"{decay_steps}")
+
+    def factor(t: int) -> float:
+        t = min(float(t), float(decay_steps))
+        return (1 - alpha) * (0.5 * (1 + math.cos(math.pi * t / decay_steps))
+                              ) + alpha
+
+    return factor
+
+
+def cosine_adam(lr: float, decay_steps: int, alpha: float = 0.0
+                ) -> OptimizerFactory:
+    """``optax.adam(optax.cosine_decay_schedule(lr, decay_steps, alpha))``:
+    Adam whose rate at update t is ``lr * cosine_decay(...)(t)``, held at
+    ``lr * alpha`` past ``decay_steps``. A ``LambdaLR`` sets the first
+    update's rate when it is made and the next one each time
+    ``train_step`` steps it, after the optimizer."""
+    factor = cosine_decay(decay_steps, alpha)
+
+    def make(params):
+        opt = _adam(params, lr)
+        return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)
+
+    return make
 
 
 def differentiable_edmd(zx: Tensor, zy: Tensor, u: Tensor, ridge: float,
@@ -204,9 +251,10 @@ def make_train_step(cfg: KMAEConfig,
 
     ``train_step(state, x_snap, y_snap, u_snap, x_win, u_win, rec_only)``
     backpropagates the loss, steps the state's optimizer (its modules
-    change in place) and returns ``(state, loss, aux)`` with the blended
-    (A, B) as the new ``a_prev``/``b_prev``; loss and aux are detached, so
-    no step's graph outlives it.
+    change in place), then its schedule if it has one, and returns
+    ``(state, loss, aux)`` with the blended (A, B) as the new
+    ``a_prev``/``b_prev``; loss and aux are detached, so no step's graph
+    outlives it.
 
     With a process ``group`` (data parallelism: each rank passes its
     block of the snapshots and windows and the same state), the gradients
@@ -225,6 +273,8 @@ def make_train_step(cfg: KMAEConfig,
         if group is not None:
             loss = _pmean_grads(state.params.leaves(), loss.detach(), group)
         opt.step()
+        if state.schedule is not None:
+            state.schedule.step()
         aux = {k: v.detach() for k, v in aux.items()}
         return (state._replace(a_prev=aux["a"], b_prev=aux["b"]),
                 loss.detach(), aux)
@@ -263,7 +313,8 @@ def init_state(gen: torch.Generator, cfg: KMAEConfig, n: int, nlift: int,
     params = KMAEParams(encoder=enc.to(dev), decoder=dec.to(dev))
     a0 = torch.rand((nlift, nlift), generator=gen, dtype=dtype) / nlift
     b0 = torch.rand((nlift, 1), generator=gen, dtype=dtype) / nlift
-    factory = make_train_step(cfg, optimizer)[1]
-    return KMAEState(params=params, opt_state=factory(params.leaves()),
-                     a_prev=a0.to(dev), b_prev=b0.to(dev))
+    made = make_train_step(cfg, optimizer)[1](params.leaves())
+    opt, schedule = made if isinstance(made, tuple) else (made, None)
+    return KMAEState(params=params, opt_state=opt, a_prev=a0.to(dev),
+                     b_prev=b0.to(dev), schedule=schedule)
 

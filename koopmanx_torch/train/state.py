@@ -50,6 +50,18 @@ def check_adam(opt: torch.optim.Optimizer) -> None:
             f"the JAX package's ScaleByAdamState, not {type(opt).__name__}")
 
 
+def check_checkpointable(state: KMAEState) -> None:
+    """Raise unless ``state`` converts to the JAX package's checkpoint: an
+    Adam optimizer (:func:`check_adam`) and no learning-rate schedule,
+    whose count (optax's ``ScaleByScheduleState`` leaf) the schema does
+    not carry."""
+    check_adam(state.opt_state)
+    if state.schedule is not None:
+        raise ValueError(
+            "a state with a learning-rate schedule does not checkpoint: the "
+            "checkpoint holds optax Adam's state and not the schedule's count")
+
+
 def kmae_leaves(arrays: Dict[str, Any]) -> List[np.ndarray]:
     """A KMAE state's arrays in ``jax.tree_util.tree_flatten`` order of a
     JAX ``KMAEState``: the parameters, Adam's ``count`` (int32), ``mu``

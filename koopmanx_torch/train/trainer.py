@@ -36,7 +36,7 @@ from .kmae import (
     make_windows,
 )
 from .state import (
-    check_adam,
+    check_checkpointable,
     kmae_arrays_from_leaves,
     kmae_leaves,
     kmae_state_to_numpy,
@@ -45,6 +45,7 @@ from .state import (
 
 
 def save_checkpoint(path: str, state: KMAEState, step: int) -> None:
+    check_checkpointable(state)
     leaves = kmae_leaves(kmae_state_to_numpy(state))
     np.savez(path, step=step, n_leaves=len(leaves),
              **{f"leaf_{i}": leaf for i, leaf in enumerate(leaves)})
@@ -96,10 +97,13 @@ def fit(
     scores land in history as ``val_score``. The epoch's ``loss`` is the
     mean of its steps' losses, read from the device once an epoch.
 
-    Checkpoints hold optax Adam's state, so with ``checkpoint_path`` the
-    optimizer must be an Adam or AdamW without amsgrad (ValueError
-    before the first step otherwise); the best-state selection takes any
-    optimizer.
+    ``optimizer`` may also return ``(optimizer, schedule)``, as
+    ``kmae.cosine_adam`` does; the schedule steps after each optimizer
+    step. Checkpoints hold optax Adam's state and no schedule count, so
+    with ``checkpoint_path`` the optimizer must be an Adam or AdamW
+    without amsgrad and without a schedule (ValueError before the first
+    step otherwise); the best-state selection takes any optimizer and
+    restores its schedule's count with it.
     """
     dev = resolve_device(device)
     n = data.x.shape[-1]
@@ -108,7 +112,7 @@ def fit(
                        dtype=dtype, optimizer=optimizer, device=dev)
     start_epoch = 0
     if checkpoint_path:
-        check_adam(state.opt_state)
+        check_checkpointable(state)
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         state, start_epoch = load_checkpoint(checkpoint_path, state)
 
@@ -168,17 +172,21 @@ def fit(
 def _snapshot(state: KMAEState):
     """A copy of ``state`` that later steps do not change, for any
     optimizer."""
+    schedule = (None if state.schedule is None
+                else copy.deepcopy(state.schedule.state_dict()))
     return ([copy.deepcopy(mlp.state_dict()) for mlp in state.params],
-            copy.deepcopy(state.opt_state.state_dict()),
+            copy.deepcopy(state.opt_state.state_dict()), schedule,
             state.a_prev.clone(), state.b_prev.clone())
 
 
 def _restore(state: KMAEState, snap) -> KMAEState:
     """``state`` set back to :func:`_snapshot`'s copy, in place."""
-    modules, opt, a_prev, b_prev = snap
+    modules, opt, schedule, a_prev, b_prev = snap
     for mlp, sd in zip(state.params, modules):
         mlp.load_state_dict(sd)
     state.opt_state.load_state_dict(opt)
+    if schedule is not None:
+        state.schedule.load_state_dict(schedule)
     return state._replace(a_prev=a_prev, b_prev=b_prev)
 
 
