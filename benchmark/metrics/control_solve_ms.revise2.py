@@ -1,0 +1,10 @@
+"""control_solve_ms.revise2 (ms): device time a step of the operations launched under the
+benchmark's ``control_solve`` range in the profiled stretch of a sweep.
+The same reading as ``control_solve_ms``, in the cells that report
+``solves_per_s.revise2``, which has a bound of its own.
+"""
+from benchmark.readers import stage_ms
+
+
+def read(rec):
+    return stage_ms(rec, "control_solve")

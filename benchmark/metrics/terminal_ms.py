@@ -1,0 +1,7 @@
+"""terminal_ms (ms): device time a step of the operations launched under the
+benchmark's ``terminal`` range in the profiled stretch of a sweep."""
+from benchmark.readers import stage_ms
+
+
+def read(rec):
+    return stage_ms(rec, "terminal")
