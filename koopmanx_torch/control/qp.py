@@ -29,6 +29,7 @@ from torch import Tensor
 from ..ops.box_admm import box_admm, box_admm_reference, refuse_autograd
 from ..ops.linalg import spd_inverse
 from ..types import QPData, QPSolution
+from ..utils import profiling
 
 
 class ADMMConfig(NamedTuple):
@@ -120,23 +121,28 @@ def solve_qp_batch(qp: QPData, cfg: ADMMConfig = ADMMConfig(),
 
 
 def _solve(admm, p, q, lo, hi, cfg: ADMMConfig, x0, y0, kkt_inv=None):
-    x0 = torch.zeros_like(q) if x0 is None else x0
-    y0 = torch.zeros_like(q) if y0 is None else y0
-    rho = _effective_rho(p, cfg)
-    if kkt_inv is None:
-        kkt_inv = spd_inverse(box_kkt(p, cfg), block=cfg.kkt_block)
-    out = admm(bf16_rounded(kkt_inv, cfg), q, lo, hi, x0, y0, rho,
-               iters=cfg.iters, sigma=cfg.sigma, alpha=cfg.alpha)
-    primal = (out.xt - torch.clamp(out.xt, lo, hi)).abs().amax(-1)
-    dual = ((p @ out.z.unsqueeze(-1)).squeeze(-1) + q + out.y).abs().amax(-1)
-    return QPSolution(
-        x=out.z,  # the projected iterate is the feasible solution
-        z=out.z,
-        y=out.y,
-        primal_res=primal,
-        dual_res=dual,
-        iterations=cfg.iters,
-    )
+    with profiling.span("kx.qp_solve"):
+        x0 = torch.zeros_like(q) if x0 is None else x0
+        y0 = torch.zeros_like(q) if y0 is None else y0
+        with profiling.span("kx.kkt_inverse"):
+            rho = _effective_rho(p, cfg)
+            if kkt_inv is None:
+                kkt_inv = spd_inverse(box_kkt(p, cfg), block=cfg.kkt_block)
+            kkt_inv = bf16_rounded(kkt_inv, cfg)
+        with profiling.span("kx.admm"):
+            out = admm(kkt_inv, q, lo, hi, x0, y0, rho, iters=cfg.iters,
+                       sigma=cfg.sigma, alpha=cfg.alpha)
+        primal = (out.xt - torch.clamp(out.xt, lo, hi)).abs().amax(-1)
+        dual = ((p @ out.z.unsqueeze(-1)).squeeze(-1) + q + out.y
+                ).abs().amax(-1)
+        return QPSolution(
+            x=out.z,  # the projected iterate is the feasible solution
+            z=out.z,
+            y=out.y,
+            primal_res=primal,
+            dual_res=dual,
+            iterations=cfg.iters,
+        )
 
 
 def solve_box_qp(p: Tensor, q: Tensor, lo: Tensor, hi: Tensor,

@@ -20,6 +20,7 @@ from torch import Tensor
 
 from ..ops.linalg import cholesky
 from ..types import LinearModel
+from ..utils import profiling
 from .dare import dlqr_gain, solve_dare_doubling
 
 
@@ -42,10 +43,11 @@ def synthesize_terminal(model: LinearModel, q_lift: Tensor, r: Tensor,
                         iters: int = 30) -> TerminalCert:
     """The DARE certificate of each scenario's model (``terminal.py:
     45-55``): P by doubling, K its gain, gamma = trace P."""
-    p = solve_dare_doubling(model.A, model.B, q_lift, r, iters=iters)
-    k = dlqr_gain(model.A, model.B, q_lift, r, p)
-    gamma = p.diagonal(dim1=-2, dim2=-1).sum(-1)
-    return TerminalCert(p=p, k=k, gamma=gamma)
+    with profiling.span("kx.terminal"):
+        p = solve_dare_doubling(model.A, model.B, q_lift, r, iters=iters)
+        k = dlqr_gain(model.A, model.B, q_lift, r, p)
+        gamma = p.diagonal(dim1=-2, dim2=-1).sum(-1)
+        return TerminalCert(p=p, k=k, gamma=gamma)
 
 
 def prediction_residual(model: LinearModel, z: Tensor, u: Tensor,

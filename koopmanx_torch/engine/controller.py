@@ -39,6 +39,7 @@ from ..device import DeviceLike, resolve_device
 from ..lifts.base import Dictionary
 from ..tree import tree_map
 from ..types import LinearModel
+from ..utils import profiling
 from .core import (
     EngineConfig,
     MPCParams,
@@ -80,6 +81,12 @@ def make_step_fn(dictionary: Dictionary, cfg: EngineConfig, ref_fn: RefFn,
 
     def step_fn(params: MPCParams, state: ControllerState, x: Tensor,
                 step: Step):
+        with profiling.span("kx.step", {"step": step}):
+            profiling.count("step.rows", x.shape[0])
+            return _step(params, state, x, step)
+
+    def _step(params: MPCParams, state: ControllerState, x: Tensor,
+              step: Step):
         z = dictionary(x)
         model, rls, res_ema = state.model, state.rls, state.res_ema
         if cfg.update != "off":

@@ -76,6 +76,7 @@ from ..edmd.windowed import (
 from ..lifts.base import Dictionary
 from ..ops.linalg import ns_tracking_inverse, spd_inverse
 from ..types import LinearModel, QPSolution, model_from_rls
+from ..utils import profiling
 from .ref import Step
 
 
@@ -432,6 +433,9 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             new = (tc.p, -tc.k, tc.gamma)
         v_anchor = lyapunov_value(new[0], psi)
         ok = _tree_finite(new) & (v_anchor >= 0) & (new[2] > 0)
+        if profiling.enabled():
+            profiling.count("terminal.rows", ok.shape[0])
+            profiling.count_device("terminal.held", (~ok).sum())
         held = tuple(torch.where(ok.reshape(ok.shape + (1,) * (a.dim() - 1)),
                                  a, b) for a, b in zip(new, cert))
         if cfg.track_lifted:
@@ -453,6 +457,14 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
         synthesis only; ``kkt_prev``, last step's KKT inverse, under
         ``qp_kkt_refine`` only: a caller that threads none (``()``, as the
         local-linear loop) gets the exact inverse every step."""
+        with profiling.span("kx.control_solve"):
+            return solve(params, model, z, u_prev, warm_x, warm_y, step,
+                         cert, x, kkt_prev)
+
+    def solve(params: MPCParams, model: LinearModel, z: Tensor,
+              u_prev: Tensor, warm_x: Tensor, warm_y: Any, step: Step,
+              cert: Any, x: Optional[Tensor], kkt_prev: Any
+              ) -> ControlDecision:
         host_step = step
         step = host_to(step, z.device)
         revise2 = {}
@@ -477,67 +489,78 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             z_qp = torch.cat([z, u_prev], dim=-1)
         else:
             z_qp = z
-        qbar = weight_bar(params.q_block, horizon, terminal)
-        rbar = block_diag_repeat(params.r_block, horizon)
-        pred = prediction_matrices(model, horizon, params.cy, cfg.markov)
-        if cfg.f_clamp > 0.0:
-            fc = cfg.f_clamp
-            pred = type(pred)(*(
-                torch.nan_to_num(f, nan=0.0, posinf=fc, neginf=-fc).clamp(-fc, fc)
-                for f in pred
-            ))
-        r_window = ref_fn(step)  # (horizon, py); py = nlift when lifted
-        yr = r_window.flatten(-2)
-        # extra inequality rows: the applied window on du_0 ('rows'; one
-        # selector [I_m 0] shared by every scenario), the state box on the
-        # prediction F1 z + F2 x (F2 per scenario)
-        a_rows, l_rows, u_rows = [], [], []
-        if _has_applied_rows(cfg, params):
-            a_rows.append(torch.eye(m, horizon * m, dtype=z.dtype,
-                                    device=z.device))
-            l_rows.append(params.applied_min - u_prev)
-            u_rows.append(params.applied_max - u_prev)
-        if _has_state_rows(cfg, params):
-            f1z = (pred.f1 @ z_qp.unsqueeze(-1)).squeeze(-1)
-            a_rows.append(pred.f2)
-            l_rows.append(params.x_min - f1z)
-            u_rows.append(params.x_max - f1z)
-        # per-channel bounds (m,) tiled over the horizon
-        lo, hi = (v.repeat((1,) * (v.dim() - 1) + (horizon,))
-                  for v in (params.u_min, params.u_max))
-        if (cfg.delta_u and params.applied_min is not None
-                and cfg.applied_bounds == "box"):
-            # the applied-input window constrains du_0 alone: intersect it
-            # with du_0's box (applied_bounds='box'); the minimum guards an
-            # empty intersection. Each scenario gets its own first bounds.
-            lo0 = torch.maximum(params.u_min, params.applied_min - u_prev)
-            hi0 = torch.minimum(params.u_max, params.applied_max - u_prev)
-            lo0 = torch.minimum(lo0, hi0)
-            lo = torch.cat([lo0, lo[..., m:]], dim=-1)
-            hi = torch.cat([hi0, hi[..., m:]], dim=-1)
+        with profiling.span("kx.qp_build"):
+            qbar = weight_bar(params.q_block, horizon, terminal)
+            rbar = block_diag_repeat(params.r_block, horizon)
+            pred = prediction_matrices(model, horizon, params.cy,
+                                       cfg.markov)
+            if cfg.f_clamp > 0.0:
+                fc = cfg.f_clamp
+                pred = type(pred)(*(
+                    torch.nan_to_num(f, nan=0.0, posinf=fc,
+                                     neginf=-fc).clamp(-fc, fc)
+                    for f in pred
+                ))
+            r_window = ref_fn(step)  # (horizon, py); py = nlift if lifted
+            yr = r_window.flatten(-2)
+            # extra inequality rows: the applied window on du_0
+            # ('rows'; one selector [I_m 0] shared by every scenario),
+            # the state box on the prediction F1 z + F2 x (F2 per
+            # scenario)
+            a_rows, l_rows, u_rows = [], [], []
+            if _has_applied_rows(cfg, params):
+                a_rows.append(torch.eye(m, horizon * m, dtype=z.dtype,
+                                        device=z.device))
+                l_rows.append(params.applied_min - u_prev)
+                u_rows.append(params.applied_max - u_prev)
+            if _has_state_rows(cfg, params):
+                f1z = (pred.f1 @ z_qp.unsqueeze(-1)).squeeze(-1)
+                a_rows.append(pred.f2)
+                l_rows.append(params.x_min - f1z)
+                u_rows.append(params.x_max - f1z)
+            # per-channel bounds (m,) tiled over the horizon
+            lo, hi = (v.repeat((1,) * (v.dim() - 1) + (horizon,))
+                      for v in (params.u_min, params.u_max))
+            if (cfg.delta_u and params.applied_min is not None
+                    and cfg.applied_bounds == "box"):
+                # the applied-input window constrains du_0 alone:
+                # intersect it with du_0's box (applied_bounds='box');
+                # the minimum guards an empty intersection. Each
+                # scenario gets its own first bounds.
+                lo0 = torch.maximum(params.u_min,
+                                    params.applied_min - u_prev)
+                hi0 = torch.minimum(params.u_max,
+                                    params.applied_max - u_prev)
+                lo0 = torch.minimum(lo0, hi0)
+                lo = torch.cat([lo0, lo[..., m:]], dim=-1)
+                hi = torch.cat([hi0, hi[..., m:]], dim=-1)
+            if a_rows:
+                if cfg.qp_kkt_refine > 0:
+                    raise ValueError(
+                        "qp_kkt_refine > 0 requires the box-only QP fast "
+                        "path; this config adds general inequality rows "
+                        "(delta_u applied bounds or state_bounds) which "
+                        "use solve_qp's own KKT — set qp_kkt_refine=0 "
+                        "for this configuration"
+                    )
+                # A keeps a batch axis only where a block has one
+                batch = torch.broadcast_shapes(*(a.shape[:-2]
+                                                 for a in a_rows))
+                a_ineq = torch.cat([a.expand(batch + a.shape[-2:])
+                                    for a in a_rows], dim=-2)
+                qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi,
+                                  a_ineq, torch.cat(l_rows, dim=-1),
+                                  torch.cat(u_rows, dim=-1))
+            else:
+                qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi)
         new_kkt = kkt_prev
         if a_rows:
-            if cfg.qp_kkt_refine > 0:
-                raise ValueError(
-                    "qp_kkt_refine > 0 requires the box-only QP fast path; "
-                    "this config adds general inequality rows (delta_u "
-                    "applied bounds or state_bounds) which use solve_qp's "
-                    "own KKT — set qp_kkt_refine=0 for this configuration"
-                )
             # the general-inequality ADMM, on every route (the kernel
-            # serves the box path only, as in the JAX package); A keeps a
-            # batch axis only where a block has one
-            batch = torch.broadcast_shapes(*(a.shape[:-2] for a in a_rows))
-            a_ineq = torch.cat([a.expand(batch + a.shape[-2:])
-                                for a in a_rows], dim=-2)
-            qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi, a_ineq,
-                              torch.cat(l_rows, dim=-1),
-                              torch.cat(u_rows, dim=-1))
+            # serves the box path only, as in the JAX package)
             x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else None
             y0 = warm_y if cfg.qp_warm_start == "full" else None
             sol = solve_qp(qp, qp_cfg, x0=x0, y0=y0)
         else:
-            qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi)
             zeros_x = torch.zeros_like(qp.q)
             x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else zeros_x
             y0 = warm_y if cfg.qp_warm_start == "full" else zeros_x
@@ -733,6 +756,11 @@ def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
 
     def estimator_update(rls, model: LinearModel, z: Tensor, u: Tensor,
                          z_next: Tensor, c_target: Tensor, step: Step):
+        with profiling.span("kx.estimator"):
+            return update(rls, model, z, u, z_next, c_target, step)
+
+    def update(rls, model: LinearModel, z: Tensor, u: Tensor,
+               z_next: Tensor, c_target: Tensor, step: Step):
         if cfg.update == "off":
             return rls, model
         per_plant = isinstance(step, Tensor)
@@ -776,15 +804,21 @@ def make_estimator_update(dictionary: Dictionary, cfg: EngineConfig):
                                         ridge=cfg.rls_ridge)
             new_model = sqrt_rls_model(rls_new, nlift)
         if cfg.model_guard > 0.0:
-            # a held model is its own guarded fallback: nothing to screen
-            if new_model is not None:
-                finite = _tree_finite(new_model)
-                radius = _spectral_radius_estimate(new_model.A)
-                sane = finite & (radius < cfg.model_guard)
-                new_model = _select(sane, new_model, model)
-            # the estimator never absorbs non-finite carries; out-of-place
-            # updates leave ``rls`` intact to fall back on
-            rls_new = _select(_tree_finite(rls_new), rls_new, rls)
+            with profiling.span("kx.model_guard"):
+                # a held model is its own guarded fallback: nothing to
+                # screen
+                if new_model is not None:
+                    finite = _tree_finite(new_model)
+                    radius = _spectral_radius_estimate(new_model.A)
+                    sane = finite & (radius < cfg.model_guard)
+                    new_model = _select(sane, new_model, model)
+                    if profiling.enabled():
+                        profiling.count("model_guard.rows", sane.shape[0])
+                        profiling.count_device("model_guard.held",
+                                               (~sane).sum())
+                # the estimator never absorbs non-finite carries;
+                # out-of-place updates leave ``rls`` intact to fall back on
+                rls_new = _select(_tree_finite(rls_new), rls_new, rls)
         return rls_new, model if new_model is None else new_model
 
     return estimator_update

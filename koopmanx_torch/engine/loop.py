@@ -24,6 +24,7 @@ from ..lifts.base import Dictionary
 from ..systems.base import System, as_params, make_step, make_switch_schedule
 from ..tree import tree_leaves
 from ..types import LinearModel
+from ..utils import profiling
 from .core import (
     EngineConfig,
     MPCParams,
@@ -172,6 +173,11 @@ def make_closed_loop(system: System, dictionary: Dictionary,
     estimator_update = make_estimator_update(dictionary, cfg)
 
     def one_step(params, carry: LoopCarry, step: int, theta_sched):
+        with profiling.span("kx.step", {"step": step}):
+            profiling.count("step.rows", carry.x.shape[0])
+            return _step(params, carry, step, theta_sched)
+
+    def _step(params, carry: LoopCarry, step: int, theta_sched):
         x, model = carry.x, carry.model
         z = dictionary(x)
         dec = control_solve(params, model, z, carry.u_applied, carry.warm_x,

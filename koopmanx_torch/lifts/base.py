@@ -15,11 +15,15 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor, nn
 
+from ..utils import profiling
+
 
 class Dictionary(nn.Module):
     """psi(x) = encoder(x), or (encoder(x) - mu) / sc when normalized.
     Maps (..., n) -> (..., nlift); ``decoder``, where given, maps back
     (:meth:`decode`, ``lifts/base.py:43-50``)."""
+
+    _lifting = False  # a Dictionary's forward is running (spans on)
 
     def __init__(self, encoder: nn.Module, nlift: int, n: int,
                  mean: Optional[Tensor] = None,
@@ -48,6 +52,19 @@ class Dictionary(nn.Module):
         return self.decoder(z)
 
     def forward(self, x: Tensor) -> Tensor:
+        if not profiling.enabled() or Dictionary._lifting:
+            return self._lift(x)
+        # the outermost of nested dictionaries (state_augmented,
+        # zero_offset) is the lift: one span and one count
+        profiling.count("lift.rows", x.shape[0] if x.dim() > 1 else 1)
+        Dictionary._lifting = True
+        try:
+            with profiling.span("kx.lift"):
+                return self._lift(x)
+        finally:
+            Dictionary._lifting = False
+
+    def _lift(self, x: Tensor) -> Tensor:
         z = self.encoder(x)
         if self.mu is not None:
             z = (z - self.mu) / self.sc

@@ -17,6 +17,8 @@ from typing import Any, Callable, Optional
 import torch
 from torch import Tensor
 
+from ..utils import profiling
+
 VectorField = Callable[[float, Tensor, Tensor, Any], Tensor]
 StepMap = Callable[[Tensor, Tensor, Any], Tensor]
 
@@ -103,10 +105,14 @@ def make_step(system: System, h: float, integrator: str = "rk4") -> StepMap:
         base = rk4_step_k1k4(system.f, h)
     else:
         raise ValueError(f"unknown integrator {integrator!r}")
-    if system.clamp is None:
-        return base
     clamp = system.clamp
-    return lambda x, u, theta: clamp(base(x, u, theta))
+
+    def step(x: Tensor, u: Tensor, theta: Any) -> Tensor:
+        with profiling.span("kx.plant"):
+            x_next = base(x, u, theta)
+            return x_next if clamp is None else clamp(x_next)
+
+    return step
 
 
 def as_params(theta: Any, dtype: torch.dtype, device: torch.device) -> Any:

@@ -5,6 +5,7 @@
 ``systems/data.py::from_reference_layout`` and ``types.ClosedLoopLog``;
 then ``utils/profiling.py`` on the CPU. float64; inputs from numpy with a
 seed."""
+import json
 import time
 
 import numpy as np
@@ -140,18 +141,10 @@ def test_closed_loop_log_fields_match_jax():
 
 
 def test_profiling_helpers_on_the_cpu(tmp_path):
-    """``StepTimer`` accumulates each phase (a 20 ms sleep is 20 ms or
-    more), ``solves_per_second`` is the rate, ``time_fn`` the best of its
-    repeats, and ``trace`` writes its trace file."""
-    timer = profiling.StepTimer(device="cpu")
-    for _ in range(2):
-        with timer.phase("sleep"):
-            time.sleep(0.02)
-        with timer.phase("matmul"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    rep = timer.report()
-    assert rep["sleep"]["count"] == 2 and rep["sleep"]["total_s"] >= 0.04
-    assert rep["sleep"]["mean_ms"] >= 20.0 and rep["matmul"]["count"] == 2
+    """``solves_per_second`` is the rate, ``time_fn`` the best of its
+    repeats, and ``trace`` writes its trace file and, beside it, the
+    counters counted in its block (the spans are on there, and off
+    again after it)."""
     assert profiling.solves_per_second(8192, 200, 2.0) == 8192 * 100
     calls = []
     best = profiling.time_fn(lambda: (calls.append(1), time.sleep(0.01)),
@@ -159,5 +152,12 @@ def test_profiling_helpers_on_the_cpu(tmp_path):
     assert len(calls) == 4 and 0.01 <= best < 1.0
     with profiling.trace(str(tmp_path / "trace")) as prof:
         torch.ones(32, 32) @ torch.ones(32, 32)
-    assert prof is not None
+        profiling.count("rows", 3)
+        profiling.count_device("held", torch.tensor(2))
+        profiling.count_device("held", torch.tensor(1))
+    assert prof is not None and not profiling.enabled()
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    counts = json.loads((tmp_path / "trace" / "counters.json").read_text())
+    assert counts == {"rows": 3, "held": 3}
+    profiling.count("rows", 1)  # off: nothing counts
+    assert profiling.counters() == {}

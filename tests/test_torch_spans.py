@@ -1,0 +1,185 @@
+"""The program's spans and counters (``koopmanx_torch/utils/profiling.py``)
+on the CPU: off, they open no range and count nothing; on, the closed
+loop's carry and logs are the same bit for bit, the counts are those of
+the work (lifts a solve, models held by the guard), and under
+``torch.profiler`` the ``kx.*`` spans nest as the step runs them, the
+step's span carrying its index. The flagship and Revise_2 presets, 16
+scenarios, float32, the kernel route (its plain version on the CPU)."""
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from koopmanx_torch import configs as C  # noqa: E402
+from koopmanx_torch.engine.controller import BatchedController  # noqa: E402
+from koopmanx_torch.engine.scenario import sample_scenarios  # noqa: E402
+from koopmanx_torch.run import (build_pipeline, run_scenarios,  # noqa: E402
+                                with_engine_config)
+from koopmanx_torch.systems.library import get_system  # noqa: E402
+from koopmanx_torch.utils import profiling  # noqa: E402
+
+BATCH, STEPS = 16, 4
+PRESETS = ["duffing", "revise2_duffing"]
+# the outermost dictionary calls of a step: psi(x) and psi(x+); Revise_2
+# adds psi(x - r) in the synthesis and psi(x - r), psi(e) in its monitors
+LIFTS_PER_SOLVE = {"duffing": 2, "revise2_duffing": 5}
+# each span's nearest enclosing span
+PARENT = {"kx.control_solve": "kx.step", "kx.qp_build": "kx.control_solve",
+          "kx.qp_solve": "kx.control_solve", "kx.kkt_inverse": "kx.qp_solve",
+          "kx.admm": "kx.qp_solve", "kx.terminal": "kx.control_solve",
+          "kx.plant": "kx.step", "kx.estimator": "kx.step",
+          "kx.model_guard": "kx.estimator"}
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    out = {}
+    for name in PRESETS:
+        cfg = C.PRESETS[name]()
+        cfg.steps = STEPS
+        cfg.mpc.qp_backend = "pallas"
+        cfg.lift.weights_path = "artifacts/duffing_kmae_encoder.mat"
+        pipe = build_pipeline(cfg, device="cpu")
+        sc = sample_scenarios(get_system(cfg.system),
+                              torch.Generator().manual_seed(0), BATCH,
+                              param_scale=0.15, device="cpu")
+        out[name] = (pipe, sc)
+    return out
+
+
+@pytest.fixture(autouse=True)
+def spans_off():
+    profiling.enable(False)
+    yield
+    profiling.enable(False)
+
+
+def _run(pipe, sc, on):
+    profiling.enable(on)
+    out = run_scenarios(pipe, sc)
+    counts = profiling.counters()
+    profiling.enable(False)
+    return out, counts
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return []
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_spans_off_open_nothing_and_count_nothing(pipes, name, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a span opened with the spans off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", refuse)
+    (carry, log), counts = _run(*pipes[name], on=False)
+    assert counts == {}
+    assert torch.isfinite(log.x).all()
+    # and the same loop with the spans on reaches the refusal
+    with pytest.raises(AssertionError, match="span opened"):
+        _run(*pipes[name], on=True)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_loop_is_the_same_bit_for_bit_with_spans_on(pipes, name):
+    off, _ = _run(*pipes[name], on=False)
+    on, counts = _run(*pipes[name], on=True)
+    a, b = _leaves(off), _leaves(on)
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert counts["step.rows"] == BATCH * STEPS
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_lifts_per_solve(pipes, name):
+    _, counts = _run(*pipes[name], on=True)
+    assert counts["lift.rows"] == LIFTS_PER_SOLVE[name] * counts["step.rows"]
+    assert counts["model_guard.rows"] == BATCH * STEPS
+    if name == "revise2_duffing":
+        assert counts["terminal.rows"] == BATCH * STEPS
+        assert 0 <= counts["terminal.held"] <= BATCH * STEPS
+    else:
+        assert "terminal.rows" not in counts
+
+
+def test_a_guard_that_every_model_fails_holds_every_model(pipes):
+    pipe, sc = pipes["duffing"]
+    strict = with_engine_config(pipe, model_guard=1e-12)
+    (carry, _), counts = _run(strict, sc, on=True)
+    assert counts["model_guard.held"] == BATCH * STEPS
+    assert counts["model_guard.rows"] == BATCH * STEPS
+    # every model held: the carry's model is the starting one
+    assert torch.equal(carry.model.A, pipe.model0.A.expand_as(carry.model.A))
+
+
+def _kx_parent(event):
+    parent = event.cpu_parent
+    while parent is not None and not parent.name.startswith("kx."):
+        parent = parent.cpu_parent
+    return None if parent is None else parent.name
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_spans_nest_as_the_step_runs_them(pipes, name):
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe, sc = pipes[name]
+    profiling.enable(True)
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        run_scenarios(pipe, sc)
+    profiling.enable(False)
+    spans = [e for e in prof.events() if e.name.startswith("kx.")]
+    names = {e.name for e in spans}
+    want = set(PARENT) | {"kx.step", "kx.lift"}
+    if name != "revise2_duffing":
+        want.discard("kx.terminal")
+    assert names == want
+    steps = [e for e in spans if e.name == "kx.step"]
+    assert [e.kwinputs for e in steps] == [{"step": k} for k in range(STEPS)]
+    for e in spans:
+        if e.name == "kx.step":
+            assert _kx_parent(e) is None
+        elif e.name == "kx.lift":
+            # psi(x - r) of the synthesis runs inside the control solve
+            assert _kx_parent(e) in ("kx.step", "kx.control_solve")
+        else:
+            assert _kx_parent(e) == PARENT[e.name], e.name
+    per_step = sum(e.name == "kx.lift" for e in spans) / STEPS
+    assert per_step == LIFTS_PER_SOLVE[name]
+
+
+def test_the_served_step_is_a_span_of_its_own(pipes):
+    """``BatchedController.step``: one ``kx.step`` a call, one lift a
+    call (the previous measurement's lift is carried)."""
+    pipe, sc = pipes["duffing"]
+    ctrl = BatchedController.from_pipeline(pipe, BATCH)
+    profiling.enable(True)
+    x = sc.x0
+    for _ in range(3):
+        ctrl.step(x)
+    counts = profiling.counters()
+    assert counts["step.rows"] == 3 * BATCH
+    assert counts["lift.rows"] == 3 * BATCH
+    # the estimator runs every call (a first call drops what it gives)
+    assert counts["model_guard.rows"] == 3 * BATCH
+
+
+def test_trace_writes_the_counters(pipes, tmp_path):
+    pipe, sc = pipes["duffing"]
+    with profiling.trace(str(tmp_path / "t")):
+        run_scenarios(pipe, sc)
+    assert not profiling.enabled()
+    counts = json.loads((tmp_path / "t" / "counters.json").read_text())
+    assert counts["step.rows"] == BATCH * STEPS
+    assert counts["lift.rows"] == 2 * BATCH * STEPS
+    trace = json.loads((tmp_path / "t" / "trace.json").read_text())
+    steps = [e for e in trace["traceEvents"] if e.get("name") == "kx.step"]
+    assert [e["args"]["step"] for e in steps] == list(range(STEPS))

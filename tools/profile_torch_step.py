@@ -15,7 +15,8 @@ to whole cadence cycles); ``--config rbf128`` the large-lift loop
 stages are the ring write, the Gram motion and Sherman-Morrison updates
 inside ``window_update_carry``, the Newton-Schulz polish, the model from
 the carried statistics, the finiteness sums, the per-scenario select, the
-prediction matrices and the model guard's spectral radius; ``--config
+QP build (``kx.qp_build``) and the model guard (``kx.model_guard``);
+``--config
 tank_mimo`` the two-pump loop (``configs.tank_mimo_bench_config``: m = 2,
 N*m = 40, the window refit every step), profiled on both routes as two
 regimes: ``pallas`` (the dense 40 x 40 ``spd_inverse``, then the
@@ -24,26 +25,27 @@ box-ADMM kernel at nx = 40) and ``xla`` (the output-space construction
 Schulz chains and the ring write; ``--config vdp`` the Van der Pol
 lifted-tracking loop (``configs.vdp_bench_config``: the QP tracks the
 lifted reference, py = nlift = 8, so Qbar is (8N, 8N)), whose stages are
-the prediction matrices, the condensed QP, the KKT inverse and the
-square-root RLS; ``--config vdp_rbf`` the storage-method loop
+the QP build (``kx.qp_build``), the KKT inverse (``kx.kkt_inverse``) and
+the square-root RLS; ``--config vdp_rbf`` the storage-method loop
 (``configs.vdp_rbf_bench_config``: two batched pseudo-inverses a step,
 ``pinv``, inside ``storage_model``); ``--config rls_chol`` the flagship
 with the Gram-carry RLS and its reset (``gram_rls_model``: two
 ``spd_inverse`` with a ridge a step); ``--config revise2_duffing`` and
 ``--config revise2_vdp`` the Revise_2 loops
 (``configs.revise2_duffing_bench_config``, ``revise2_vdp_bench_config``:
-the per-step DARE terminal synthesis), whose stages are
-``synthesize_terminal`` and the pivoted ``gj_inverse`` inside it, the
-monitor block (``revise2_monitors``) and the QP build with the batched
-Qbar (``weight_bar``, ``condensed_qp``). For each regime it prints the top
+the per-step DARE terminal synthesis), whose stages are the synthesis
+(``kx.terminal``) and the pivoted ``gj_inverse`` inside it, the monitor
+block (``revise2_monitors``) and the QP build with the batched Qbar
+(``kx.qp_build``). For each regime it prints the top
 device kernels
 by time, then one JSON line: wall ms per step, device-busy ms per step (the
 union of the kernels' intervals), the device's idle share, kernel launches
 per step, the peak device memory of the unprofiled run, the box-ADMM kernel's share of busy time and device time per
-launch, and the device time under each of a few named stages
-(``torch.profiler.record_function`` around the engine's functions: for the
-tank, the Newton-Schulz chains, the refit, the ring write and the
-finiteness checks), and the host synchronizations a step
+launch, and the device time under each of the program's ``kx.*`` spans
+(``koopmanx_torch/utils/profiling.py``, on for the profiled run) and of a
+few named stages (``torch.profiler.record_function`` around the engine's
+functions that no span covers: for the tank, the Newton-Schulz chains,
+the refit, the ring write and the finiteness checks), and the host synchronizations a step
 (``torch.cuda.set_sync_debug_mode('warn')`` over a short unprofiled run,
 by the line that caused each). For the tank a last JSON line weights the two regimes
 by the steps each takes in the shipped preset's run (``tank_preset``) and
@@ -99,7 +101,6 @@ def main() -> int:
         vdp_bench_config,
         vdp_rbf_bench_config,
     )
-    from koopmanx_torch.control import qp
     from koopmanx_torch.engine import core
     from koopmanx_torch.engine import loop as engine_loop
     from koopmanx_torch.edmd import rls, windowed
@@ -107,28 +108,26 @@ def main() -> int:
     from koopmanx_torch.engine.scenario import sample_scenarios
     from koopmanx_torch.run import build_pipeline, run_scenarios
     from koopmanx_torch.systems.library import get_system
+    from koopmanx_torch.utils import profiling
 
+    # the functions that no span of the program covers, each in a range
     stages = {}
     for module, name in ((windowed, "schulz_inverse"), (core, "window_model"),
                          (core, "window_update"), (core, "_tree_finite"),
                          (core, "sqrt_rls_update_ab"),
                          (core, "sqrt_rls_update_c"),
-                         (core, "sqrt_rls_model"), (qp, "spd_inverse"),
+                         (core, "sqrt_rls_model"),
                          (core, "window_update_carry"),
                          (windowed, "window_update"), (windowed, "_sm_step"),
                          (windowed, "_polished"),
                          (core, "window_model_carry"), (core, "_select"),
-                         (core, "prediction_matrices"),
-                         (core, "_spectral_radius_estimate"),
                          (core, "lowrank_kkt_inverse"),
-                         (core, "condensed_qp"), (core, "storage_update"),
+                         (core, "storage_update"),
                          (core, "storage_model"), (rls, "pinv"),
                          (core, "gram_rls_update"),
                          (core, "gram_rls_model"),
-                         (core, "synthesize_terminal"),
                          (linalg, "gj_inverse"),
-                         (engine_loop, "revise2_monitors"),
-                         (core, "weight_bar")):
+                         (engine_loop, "revise2_monitors")):
         stages[name] = 0.0
 
         def ranged(*a, _fn=getattr(module, name), _name=name, **kw):
@@ -136,6 +135,9 @@ def main() -> int:
                 return _fn(*a, **kw)
 
         setattr(module, name, ranged)
+
+    def is_stage(name):
+        return name in stages or name.startswith("kx.")
 
     def loop(steps, warmup_end, backend):
         if args.config == "tank":
@@ -186,18 +188,20 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_plain = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        profiling.enable(True)  # the program's kx.* spans
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+        profiling.enable(False)
 
         # device-side events only (kernels, copies, fills): the aten ops
         # that launched them report the same time again
         spans = [(e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events() if e.device_type == DeviceType.CUDA
-                 and not e.name.startswith("aten::") and e.name not in stages]
+                 and not e.name.startswith("aten::") and not is_stage(e.name)]
         by_name = collections.defaultdict(lambda: [0.0, 0])
         for start, end, name in spans:
             by_name[name][0] += end - start
@@ -212,9 +216,9 @@ def main() -> int:
         lines += [f"{us:12.1f} {n:8d}  {name[:100]}" for name, (us, n) in rows]
         # the host-side ranges, each with the device time of the kernels
         # that the operations inside it launched
-        stage_us = dict.fromkeys(stages, 0.0)
+        stage_us = collections.defaultdict(float)
         for e in prof.events():
-            if e.name in stages and e.device_type == DeviceType.CPU:
+            if is_stage(e.name) and e.device_type == DeviceType.CPU:
                 total = getattr(e, "device_time_total", None)
                 stage_us[e.name] += e.cuda_time_total if total is None else total
         # host synchronizations, by the source line that caused each
