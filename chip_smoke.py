@@ -4,7 +4,8 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device and the CUDA toolkit (nvcc); it exits non-zero without them,
 or without the rest of the repository beside it. Three kernels, each
-replacing a TPU kernel of the JAX package:
+replacing a TPU kernel of the JAX package, and a fourth that replaces
+none:
 
 - ``box_admm`` (``csrc/box_admm.cu``; ``koopmanx/ops/qp_pallas_box.py``),
   on the flagship loop's path;
@@ -16,13 +17,18 @@ replacing a TPU kernel of the JAX package:
   float32 and 16 in float64 with the working set in shared memory and
   registers, or one thread per scenario with a global scratch for larger
   shapes; ``koopmanx/ops/qp_pallas_soa.py``), the whole condensed QP of one
-  control step in one launch, behind their own entry points.
+  control step in one launch, behind their own entry points;
+- ``dare_terminal`` (S1, ``csrc/dare_terminal.cu``, one library a width
+  nz; the JAX package leaves the per-step terminal synthesis to XLA), the
+  DARE by doubling, its gain and trace P of every scenario in one launch,
+  on the per-step synthesis's kernel route.
 
 Phases, each of which fails the run on error:
 
 1. build every kernel from ``koopmanx_torch/csrc`` (one nvcc per source,
    all started together, and the native C++ plant of ``csrc/`` by g++
-   beside them), print each one's register, stack and spill
+   beside them; then S1 at each width of DARE_WIDTHS, one nvcc each),
+   print each one's register, stack and spill
    report (and fail if ptxas gives a ``fused_qp`` or ``fused_qp_soa``
    instance any stack or spills) and the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at the
@@ -49,7 +55,18 @@ Phases, each of which fails the run on error:
    ``libfused_qp.so`` of another checkout, built from its own source) it
    also prints, without gating, max |kernel - LIB's kernel| on the float32
    B=8192 inputs and both kernels' device times in turns (LIB, this, this,
-   LIB);
+   LIB). S1 (``tools/check_dare_terminal.py``'s checks and timings) at
+   each width of DARE_WIDTHS on 97 scenarios and at the
+   ``revise2.sweep-64k`` cell's shape (B = 65,536, nz = 10, m = 1), in
+   float64 and float32: the same scenarios non-finite as the plain
+   synthesis, each scenario's P, K and gamma within 1e-9 (float64) or 1e-5
+   (float32, or ten times the plain version's change from one ulp of A)
+   of its largest entry, K also within ten times its m x m inverse's own
+   round-off, eps (R + B'PB), and only to its finiteness where that is
+   0.1 or more (no digit in either version); then its device ms at 65,536 and at 512 beside
+   the plain synthesis's, the library's (``USE_LAPACK=1``'s routines) and
+   the bound of ``benchmark/roofline.py::terminal_work``, and its
+   registers, warps a block, resident warps per SM and waves;
 3. drive the slice-1 path through the user entry points: the flagship
    batched Duffing closed loop (8192 scenarios x 200 steps, f32, horizon
    20, plant switch at step 100, qp_backend='pallas'), with every kernel
@@ -162,9 +179,10 @@ Phases, each of which fails the run on error:
    bench's ``BENCH_PRESET=revise2_duffing``: N = 20, the SM RLS
    warm-started from the batch Grams, the MATLAB RK4, the fallback
    encoder with the state, nlift 10; cut from the bench's 200 steps to 50,
-   the switch at 25: 50 ``box_admm`` launches, then 0),
+   the switch at 25: 50 ``box_admm`` and 50 ``dare_terminal`` launches,
+   then 0; the run S1's ``launches`` on the kernels line counts),
    ``revise2_vdp_bench_config`` (lifted tracking, the full P injected; cut
-   to 16 steps, the switch at 8) and ``toy1d_bench_config`` (the
+   to 16 steps, the switch at 8; 16 of each) and ``toy1d_bench_config`` (the
    one-state plant, no
    synthesis; cut to 40 steps, the switch at 20, where its parameters do
    not change). Gates: u finite within the preset's box, the model, the
@@ -363,13 +381,16 @@ Phases, each of which fails the run on error:
    process keeps one core busy;
 23. the last user tools, through their ``main`` functions: (a)
    ``tools/bench_terminal_torch.py`` at its defaults (512 scenarios, 30
-   steps of the per-step DARE terminal synthesis) with the hand-written
+   steps of the per-step DARE terminal synthesis) on the kernel route
+   (one B1 and one S1 launch a timed step), then on the plain route
+   (``BENCH_QP_BACKEND=xla``, no launch) with the hand-written
    Gauss-Jordan routines and with ``USE_LAPACK=1`` (the library's
-   inverse and solve at the JAX tool's six call sites): one launch a
-   timed step, finite, both ms/step printed; the library variant held to
-   the Gauss-Jordan one in float64 at 256 scenarios over 16 steps by
-   phase 15's rule (1e-8 or ten times the one-ulp floor of x0 and of the
-   initial A); (b) ``tools/train_reference_scale_torch.py`` at the
+   inverse and solve at the JAX tool's six call sites): finite, each
+   ms/step printed; on the plain route the library variant held to the
+   Gauss-Jordan one in float64 at 256 scenarios over 16 steps by phase
+   15's rule (1e-8 or ten times the one-ulp floor of x0 and of the
+   initial A), and the kernel route held to the plain route by phase
+   15's float64 gate with its full floor; (b) ``tools/train_reference_scale_torch.py`` at the
    reference's width for 2 epochs under the cosine schedule, with the
    validation selection every epoch, into a temporary directory: finite
    losses, the held rate the schedule's at the held count, the exported
@@ -424,6 +445,10 @@ TOL = {"float32": 1e-5, "float64": 1e-12}
 BOX_WIDTHS = (5, 32, 33, 128)
 # the shipped duffing preset's nx = N*m = 10 (phase 8; register instance 16)
 PRESET_NX = 10
+# S1's widths, one library each: revise2_duffing's and the cell's nz = 10,
+# revise2_vdp's 8, segments that leave lanes over (3, with m = 2), one
+# warp a scenario (16, 32) and one lane (1)
+DARE_WIDTHS = (10, 8, 3, 16, 32, 1)
 # plain vs kernel closed loop, identical but for that reassociation. During
 # the scratch-RLS warm-up the loop amplifies a round-off seed by many orders
 # of magnitude (tests/test_kkt_refine.py:53-59 documents it for the JAX
@@ -692,13 +717,16 @@ EXAMPLE_ROWS = 5
 # rest of phase 22; the CPU gradients of (b) on PART_B_THREADS threads
 PART_B_THREADS, PART_TIMEOUT = 4, 600
 # phase 23: the last user tools through their main functions. (a)
-# tools/bench_terminal_torch.py at its defaults (512 scenarios, 30 steps),
-# the Gauss-Jordan routines and then the library's (USE_LAPACK=1), each
-# launching B1 once a step of its timed runs; the library variant held to
-# the Gauss-Jordan one in float64 on one pipeline over LOOP_EARLY_STEPS at
-# EARLY_BATCH scenarios by phase 15's rule (EARLY_TOL, or ten times the
-# Gauss-Jordan variant's own change when x0 or the initial A moves one
-# ulp up or down). (b) tools/train_reference_scale_torch.py at the
+# tools/bench_terminal_torch.py at its defaults (512 scenarios, 30 steps)
+# on the kernel route (B1 and S1 once a step of its timed runs), then on
+# the plain route (BENCH_QP_BACKEND=xla, no launch) with the Gauss-Jordan
+# routines and with the library's (USE_LAPACK=1); the library variant
+# held to the Gauss-Jordan one on the plain route in float64 on one
+# pipeline over LOOP_EARLY_STEPS at EARLY_BATCH scenarios by phase 15's
+# rule (EARLY_TOL, or ten times the Gauss-Jordan variant's own change
+# when x0 or the initial A moves one ulp up or down), and the kernel
+# route to the plain one by phase 15's gate (early_f64_gate with its
+# full floor). (b) tools/train_reference_scale_torch.py at the
 # reference's width, cut from 20 epochs to TOOL_TRAIN_EPOCHS, with the
 # cosine schedule to 1 % and the validation selection every epoch, into a
 # temporary directory. (c) tools/eval_encoder_both_metrics_torch.py on the
@@ -707,6 +735,10 @@ PART_B_THREADS, PART_TIMEOUT = 4, 600
 # tools/bench_multihost_torch.py at its defaults (64 scenarios a rank, 40
 # steps, 5 reps; P = 1, the co-run pair, P = 2 gloo ranks sharing the
 # card), each setting's ranks within TOOL_RANK_TIMEOUT seconds
+TERMINAL_VARIANTS = {
+    "kernel_route": {},  # B1 and S1, one launch each a step
+    "gauss_jordan": {"BENCH_QP_BACKEND": "xla", "USE_LAPACK": "0"},
+    "library": {"BENCH_QP_BACKEND": "xla", "USE_LAPACK": "1"}}
 TOOL_TRAIN_EPOCHS, TOOL_COSINE_FINAL, TOOL_LR = 2, 0.01, 1e-3
 TOOL_EVAL_STEPS, TOOL_RANK_TIMEOUT, TOOL_MULTIHOST_REPS = 300, 300, 5
 
@@ -1169,9 +1201,18 @@ def kernel_counters():
     """Every kernel wrapper of the port, by kernel name."""
     from koopmanx_torch.ops import fused_qp_solve, fused_qp_solve_soa
     from koopmanx_torch.ops.box_admm import box_admm
+    from koopmanx_torch.ops.dare_terminal import dare_terminal
 
     return {"box_admm": box_admm, "fused_qp": fused_qp_solve,
-            "fused_qp_soa": fused_qp_solve_soa}
+            "fused_qp_soa": fused_qp_solve_soa,
+            "dare_terminal": dare_terminal}
+
+
+def launches_of(box_admm: int, dare_terminal: int = 0):
+    """:func:`read_counts` of a run that launched B1 ``box_admm`` times and
+    S1 ``dare_terminal`` times, and the fused kernels never."""
+    return {"box_admm": box_admm, "fused_qp": 0, "fused_qp_soa": 0,
+            "dare_terminal": dare_terminal}
 
 
 def zero_counts() -> None:
@@ -1433,6 +1474,76 @@ def phase_kernel_checks(device, ptxas_regs=None):
     return main
 
 
+def phase_dare_terminal_checks(device):
+    """Phase 2's S1 part, by ``tools/check_dare_terminal.py``: the kernel
+    against the plain synthesis at each width of DARE_WIDTHS (97
+    scenarios) and at the cell's shape, float64 and float32; then its
+    timings. Returns the kernels-line entry (``launches`` filled from
+    phase 15's ``revise2_duffing`` run)."""
+    import torch
+
+    tool = tool_module("check_dare_terminal")
+    cell = tool.CELL
+    shapes = [(nz, 2 if nz == 3 else 1, 97, nz) for nz in DARE_WIDTHS]
+    shapes.append((cell["nz"], cell["m"], cell["batch"], cell["batch"]))
+    cases = []
+    for nz, m, batch, seed in shapes:
+        for dtype in (torch.float64, torch.float32):
+            row = tool.check(device, nz, m, batch, dtype, seed)
+            cases.append(row)
+            print(f"kernel dare_terminal {row['dtype']} B={batch} nz={nz} "
+                  f"m={m}: worst |kernel-plain| / max|plain| (P, K, gamma) "
+                  f"{row['worst_rel']}, of the bound "
+                  f"{row['worst_ratio_to_bound']} (rtol {row['rtol']:.0e}), "
+                  f"finiteness differs {row['finite_differs']}, K without "
+                  f"a digit {row['k_without_digits']}", flush=True)
+            if not row["held"]:
+                fail(f"dare_terminal disagrees with the plain synthesis: "
+                     f"{row}")
+    rows = [tool.timing(device, batch) for batch in (cell["batch"], 512)]
+    for row in rows:
+        shape = row["launch_shape"]
+        print(f"kernel dare_terminal float32 B={row['batch']} nz={row['nz']} "
+              f"m={row['m']}: {row['kernel_ms']:.4f} ms device, plain "
+              f"{row['plain_ms']:.2f} ms, library {row['library_ms']:.2f} ms, "
+              f"bound {row['bound_ms']:.5f} ms ({row['roofline_pct']:.2f} % "
+              f"of it); {shape['registers']} registers, "
+              f"{shape['warps_per_block']} warps/block, "
+              f"{shape['resident_warps_per_sm']} resident warps/SM, "
+              f"{shape['waves']} waves", flush=True)
+    main, small = rows
+    held = [c for c in cases if c["batch"] == cell["batch"]]
+    return {
+        "name": "dare_terminal",
+        "route": "cuda",
+        "source": "koopmanx_torch/csrc/dare_terminal.cu",
+        "replaces": None,  # the JAX package leaves the synthesis to XLA
+        "launches": None,
+        "worst_rel": {c["dtype"]: c["worst_rel"] for c in held},
+        "worst_ratio_to_bound": {c["dtype"]: c["worst_ratio_to_bound"]
+                                 for c in held},
+        "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "operations",
+        "bound_share": main["bound_ms"] / main["kernel_ms"],
+        # the plain synthesis with the library's inverse and solve
+        "library_ms": main["library_ms"],
+        "registers": main["launch_shape"]["registers"],
+        "registers_from": "runtime",
+        "resident_warps_per_sm": main["launch_shape"][
+            "resident_warps_per_sm"],
+        "warps_per_block": main["launch_shape"]["warps_per_block"],
+        "waves": main["launch_shape"]["waves"],
+        "shape": {k: cell[k] for k in ("batch", "nz", "m", "iters")}
+        | {"dtype": "float32"},
+        "at_512": {k: small[k] for k in ("kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "launch_shape")},
+        "checks": cases,
+    }
+
+
 def quality(log, tail: int = 50):
     """Batch-mean tracking MSE and steady-state error of x1 against r1."""
     err = log.x[..., 0] - log.r[..., 0]
@@ -1544,7 +1655,7 @@ def phase_tank(device, card: str):
     counts = read_counts()
     print(f"phase 7 tank path (pallas): {cold_k:.2f} s cold, launches "
           f"{counts}", flush=True)
-    if counts != {"box_admm": TANK_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+    if counts != launches_of(TANK_STEPS):
         fail(f"the tank path launched {counts} in {TANK_STEPS} steps")
     bounds_k = check_tank_loop(carry_k, log_k, "pallas")
 
@@ -1707,7 +1818,7 @@ def phase_rbf128(device, card: str):
     counts = read_counts()
     print(f"phase 9 rbf128 path (pallas): {cold_k:.2f} s cold, launches "
           f"{counts}, peak {mem_k / 2**30:.2f} GiB", flush=True)
-    if counts != {"box_admm": RBF128_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+    if counts != launches_of(RBF128_STEPS):
         fail(f"the rbf128 path launched {counts} in {RBF128_STEPS} steps")
     check_woodbury_loop(carry_k, log_k, "rbf128 pallas")
 
@@ -1854,7 +1965,7 @@ def phase_tank_mimo(device, card: str):
     counts = read_counts()
     print(f"phase 11 tank_mimo path (pallas): {cold_k:.2f} s cold, launches "
           f"{counts}, peak {mem_k / 2**30:.2f} GiB", flush=True)
-    if counts != {"box_admm": MIMO_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+    if counts != launches_of(MIMO_STEPS):
         fail(f"the tank_mimo path launched {counts} in {MIMO_STEPS} steps")
     bounds_k = check_mimo_loop(carry_k, log_k, "pallas")
 
@@ -2102,7 +2213,7 @@ def phase_vdp(device, card: str):
         want = VDP_STEPS if backend == "pallas" else 0
         print(f"phase 13 vdp path ({backend}): {cold:.2f} s cold, launches "
               f"{counts}, peak {mem / 2**30:.2f} GiB", flush=True)
-        if counts != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+        if counts != launches_of(want):
             fail(f"the vdp {backend} route launched {counts} in {VDP_STEPS} "
                  "steps")
         if backend == "pallas":
@@ -2198,8 +2309,7 @@ def phase_estimators(device, card: str):
         zero_counts()
         (carry, log), wall, mem = run_with_memory(run)
         counts[name] = read_counts()
-        if counts[name] != {"box_admm": ESTIMATOR_STEPS, "fused_qp": 0,
-                            "fused_qp_soa": 0}:
+        if counts[name] != launches_of(ESTIMATOR_STEPS):
             fail(f"{name} launched {counts[name]} in {ESTIMATOR_STEPS} steps")
         escaped, x1_max = check_estimator_loop(
             carry, log, name, ESTIMATOR_STEPS, cfg.mpc.u_max)
@@ -2257,15 +2367,15 @@ def phase_revise2(device, card: str):
             (carry, log), cold, mem = run_with_memory(run)
             got = read_counts()
             want = steps if backend == "pallas" else 0
+            synth = cfg.mpc.terminal_synthesis
             print(f"phase 15 {name} ({backend}): {cold:.2f} s cold, "
                   f"launches {got}, peak {mem / 2**30:.3f} GiB", flush=True)
-            if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+            if got != launches_of(want, want if synth else 0):
                 fail(f"{name} {backend} launched {got} in {steps} steps")
             if backend == "pallas":
                 counts[name] = got
             escaped, x1_max = check_estimator_loop(
                 carry, log, f"{name} {backend}", steps, cfg.mpc.u_max)
-            synth = cfg.mpc.terminal_synthesis
             if synth and not all(bool(torch.isfinite(t).all())
                                  for t in carry.cert):
                 fail(f"{name} {backend}: non-finite held certificate")
@@ -2509,7 +2619,7 @@ def phase_serving(device, card: str, loops, fused_quality, fused_ms):
             bc, external_plant(pipe, sc), sc.x0, SERVE_CALLS))
         got = read_counts()
         want = SERVE_CALLS if backend == "pallas" else 0
-        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+        if got != launches_of(want):
             fail(f"phase 16 fleet ({backend}) launched {got}, not {want} "
                  "box_admm launches")
         check_served(xs, us, f"phase 16 fleet ({backend})", SERVE_CALLS)
@@ -2797,7 +2907,7 @@ def phase_lmi(device, card: str):
         want = LMI_STEPS if backend == "pallas" else 0
         print(f"phase 17 lmi ({backend}): {wall:.2f} s, launches {got}",
               flush=True)
-        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+        if got != launches_of(want):
             fail(f"lmi {backend} launched {got} in {LMI_STEPS} steps")
         finite = finite_rows(log.x, log.u, *carry.cert)
         lost = dare_finite & ~finite
@@ -2872,7 +2982,7 @@ def phase_lqr(device, card: str):
     zero_counts()
     (carry, log), wall = timed(run)
     got = read_counts()
-    if got != {"box_admm": 0, "fused_qp": 0, "fused_qp_soa": 0}:
+    if got != launches_of(0):
         fail(f"lqr launched {got}")
     check_loop(carry, log, "lqr", LQR_STEPS)
     mse, sse = quality_vs(log, torch.ones(BATCH, dtype=torch.bool,
@@ -2938,7 +3048,7 @@ def phase_local_linear(device, card: str):
         want = LOCAL_STEPS if backend == "pallas" else 0
         print(f"phase 17 local-linear ({backend}): {wall:.2f} s, launches "
               f"{got}", flush=True)
-        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+        if got != launches_of(want):
             fail(f"local-linear {backend} launched {got}")
         check_loop(carry, log, f"local-linear {backend}", LOCAL_STEPS)
         mse, sse = quality_vs(log, torch.ones(BATCH, dtype=torch.bool,
@@ -3275,7 +3385,7 @@ def phase_selftrained(device, encoder: str, flagship_quality):
         (carry, log), wall = timed(run)
         got = read_counts()
         want = SELFTRAINED_STEPS if backend == "pallas" else 0
-        if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+        if got != launches_of(want):
             fail(f"duffing_selftrained {backend} launched {got}")
         check_loop(carry, log, f"duffing_selftrained {backend}",
                    SELFTRAINED_STEPS)
@@ -3361,7 +3471,7 @@ def phase_l7(device, end_model):
         (carry, log), wall = timed(run)
         got = read_counts()
         name = f"{key}={value}"
-        if got != {"box_admm": L7_STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+        if got != launches_of(L7_STEPS):
             fail(f"{name} launched {got}")
         check_loop(carry, log, name, L7_STEPS)
         counts[name] = got["box_admm"]
@@ -3404,7 +3514,7 @@ def phase_training(device, card: str, end_model, flagship_quality):
 
 
 def expect_launches(got, want: int, name: str) -> None:
-    if got != {"box_admm": want, "fused_qp": 0, "fused_qp_soa": 0}:
+    if got != launches_of(want):
         fail(f"{name} launched {got}, not {want} box_admm launches")
 
 
@@ -3882,7 +3992,7 @@ def phase_mesh_one(device, card: str, run_kernel, log_k, fused_ms: float):
     counts = read_counts()
     report.update({"launches": counts, "ms_per_step": wall / STEPS * 1e3,
                    "phase5_fused_loop_ms_per_step": fused_ms})
-    if counts != {"box_admm": STEPS, "fused_qp": 0, "fused_qp_soa": 0}:
+    if counts != launches_of(STEPS):
         fail(f"phase 20 (a): the sharded loop launched {counts}")
     check_loop(carry, log, "phase 20 (a) sharded", STEPS)
     report["x_u_equal_phase3"] = (torch.equal(log.x, log_k.x)
@@ -4619,7 +4729,7 @@ def example_kernel_routes(device):
         zero_counts()
         result, secs = timed(lambda: fn(device=device))
         got = read_counts()
-        if got != {"box_admm": launches, "fused_qp": 0, "fused_qp_soa": 0}:
+        if got != launches_of(launches):
             fail(f"{name} launched {got}, want {launches}")
         metrics = result["metrics"]
         metrics = metrics if "mse" not in metrics else {"loop": metrics}
@@ -4710,15 +4820,18 @@ def phase_gradients(device, card: str):
 
 
 def terminal_f64_gate(terminal, device):
-    """Phase 23 (a)'s float64 gate: the terminal bench's config at
-    EARLY_BATCH scenarios over LOOP_EARLY_STEPS on one pipeline, the
-    library routines against the Gauss-Jordan ones, each scenario and step
-    within EARLY_TOL or ten times the Gauss-Jordan loop's own change from
-    one ulp of x0 or of the initial A (up, then down)."""
+    """Phase 23 (a)'s library gate: the terminal bench's config on the
+    plain route (``qp_backend='xla'``, where the library's routines
+    replace the Gauss-Jordan ones; the kernel route runs neither in its
+    synthesis) at EARLY_BATCH scenarios over LOOP_EARLY_STEPS on one
+    pipeline in float64, the library routines against the Gauss-Jordan
+    ones, each scenario and step within EARLY_TOL or ten times the
+    Gauss-Jordan loop's own change from one ulp of x0 or of the initial A
+    (up, then down)."""
     import torch
     from koopmanx_torch.run import build_pipeline, run_scenarios
 
-    cfg = terminal.config(LOOP_EARLY_STEPS, device)
+    cfg = terminal.config(LOOP_EARLY_STEPS, device, "xla")
     cfg.dtype = "float64"
     pipe = build_pipeline(cfg, device=device)
     sc = terminal.scenarios(EARLY_BATCH, device, torch.float64)
@@ -4726,7 +4839,7 @@ def terminal_f64_gate(terminal, device):
     gj = run_scenarios(pipe, sc)[1].x
     with terminal.library_routines():
         lib = run_scenarios(pipe, sc)[1].x
-    launches = read_counts()["box_admm"]
+    launches = read_counts()
     diff = lambda x: (x - gj).abs().amax(-1)  # (B, T)
     floors = []
     for target in (9.0, -9.0):
@@ -4746,9 +4859,8 @@ def terminal_f64_gate(terminal, device):
                                          .mean()),
               "worst_ratio_to_bound": float((dx / bound).max()),
               "launches_gj_and_library": launches}
-    if launches != 2 * LOOP_EARLY_STEPS:
-        fail(f"phase 23 (a) float64: {launches} launches in two runs of "
-             f"{LOOP_EARLY_STEPS} steps")
+    if launches != launches_of(0):
+        fail(f"phase 23 (a) float64: the plain route launched {launches}")
     if not bool(torch.isfinite(lib).all()) or not bool((dx <= bound).all()):
         fail(f"phase 23 (a): the library routines' float64 loop differs "
              f"from the Gauss-Jordan one: {report}")
@@ -4774,16 +4886,19 @@ def phase_tools(device, card: str):
     t0 = time.perf_counter()
     counts, report = {}, {"card": card}
 
-    # (a) the terminal-synthesis bench, both variants, then the f64 gate
+    # (a) the terminal-synthesis bench: the kernel route, then the plain
+    # route's Gauss-Jordan and library variants; then the float64 gates
     t = time.perf_counter()
     terminal = tool_module("bench_terminal_torch")
     env = {k: v for k, v in os.environ.items()
-           if k not in ("BENCH_BATCH", "BENCH_STEPS", "BENCH_DEVICE")}
+           if k not in ("BENCH_BATCH", "BENCH_STEPS", "BENCH_DEVICE",
+                        "BENCH_QP_BACKEND", "USE_LAPACK")}
     report["a"] = {}
-    for lapack in ("0", "1"):
-        out = quietly(terminal.main, {**env, "USE_LAPACK": lapack})
-        label = "library" if lapack == "1" else "gauss_jordan"
-        if (out["box_admm_launches"] != out["steps_run"]
+    for label, knobs in TERMINAL_VARIANTS.items():
+        out = quietly(terminal.main, {**env, **knobs})
+        want = out["steps_run"] if label == "kernel_route" else 0
+        if (out["box_admm_launches"] != want
+                or out["dare_terminal_launches"] != want
                 or out["steps_run"] != 3 * out["steps"] or not out["finite"]
                 or (out["batch"], out["steps"]) != (512, 30)
                 or not math.isfinite(out["per_step_ms"])):
@@ -4795,6 +4910,9 @@ def phase_tools(device, card: str):
         report["a"]["library"]["per_step_ms"]
         / report["a"]["gauss_jordan"]["per_step_ms"])
     report["a"]["f64"] = terminal_f64_gate(terminal, device)
+    report["a"]["kernel_vs_plain_f64"] = early_f64_gate(
+        lambda backend, steps: terminal.config(steps, device, backend),
+        device, "phase 23 (a) bench_terminal", full_floor=True)
     report["a"]["phase_s"] = time.perf_counter() - t
     print("phase 23 (a) bench_terminal " + json.dumps(report["a"]),
           flush=True)
@@ -4950,6 +5068,13 @@ def main() -> int:
     print(f"phase 1 build: {sorted(reports)} in {build_s:.1f} s; the native "
           f"plant {os.path.relpath(str(native.LIB_PATH), ROOT)} in "
           f"{native_s[0]:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    for nz, lines in tool_module("check_dare_terminal").build(
+            DARE_WIDTHS).items():
+        for line in lines:
+            print(f"nvcc dare_terminal nz={nz}: {line}", flush=True)
+    print(f"phase 1 build: dare_terminal at nz = {list(DARE_WIDTHS)} in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     for name in ("fused_qp", "fused_qp_soa"):
         for kernel, stack, spill_st, spill_ld in ptxas_stack_and_spills(
                 reports.get(name, "")):
@@ -4966,6 +5091,7 @@ def main() -> int:
         device, {name: ptxas_registers(reports.get(name, ""))
                  for name in ("fused_qp", "fused_qp_soa")},
         parent_lib=opts.parent_fused_qp)
+    dare_entry = phase_dare_terminal_checks(device)
     print(f"phase 2: {time.perf_counter() - t2:.1f} s", flush=True)
     t3 = time.perf_counter()
 
@@ -5189,11 +5315,15 @@ def main() -> int:
     print(json.dumps({"tools": {
         "bench_terminal": {
             label: {k: tools["a"][label][k] for k in (
-                "per_step_ms", "solves_per_s", "box_admm_launches")}
-            for label in ("gauss_jordan", "library")},
+                "per_step_ms", "solves_per_s", "box_admm_launches",
+                "dare_terminal_launches")}
+            for label in TERMINAL_VARIANTS},
         "library_over_gauss_jordan_per_step": tools["a"][
             "library_over_gauss_jordan_per_step"],
         "terminal_f64": tools["a"]["f64"],
+        "terminal_kernel_vs_plain_f64": {
+            k: tools["a"]["kernel_vs_plain_f64"][k] for k in (
+                "dx_f64", "floor_f64", "worst_ratio_to_bound")},
         "train_ms_per_optimizer_step": tools["b"]["ms_per_optimizer_step"],
         "train_lr_last": tools["b"]["lr_last"],
         "eval": [{k: r.get(k) for k in ("artifact", "open_rmse",
@@ -5231,8 +5361,16 @@ def main() -> int:
         **bench_counts,
         **grad_counts,
         **tool_counts}
-    print(json.dumps({"kernels": [entry, *fused_entries.values()]}),
-          flush=True)
+    dare_entry["launches"] = revise2_counts["revise2_duffing"][
+        "dare_terminal"]
+    dare_entry["launches_by_path"] = {
+        **{f"{name} bench (phase 15)": c["dare_terminal"]
+           for name, c in revise2_counts.items()},
+        **{f"bench_terminal {label}, 3 timed runs (phase 23)":
+           tools["a"][label]["dare_terminal_launches"]
+           for label in TERMINAL_VARIANTS}}
+    print(json.dumps({"kernels": [entry, *fused_entries.values(),
+                                  dare_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 from torch import Tensor
 
+from ..ops import dare_terminal as kernel_route
+from ..ops.box_admm import refuse_autograd
 from ..ops.linalg import cholesky
 from ..types import LinearModel
 from ..utils import profiling
@@ -40,10 +42,26 @@ def quad_form(v: Tensor, p: Tensor, w: Tensor) -> Tensor:
 
 
 def synthesize_terminal(model: LinearModel, q_lift: Tensor, r: Tensor,
-                        iters: int = 30) -> TerminalCert:
+                        iters: int = 30, *, kernel: bool = False
+                        ) -> TerminalCert:
     """The DARE certificate of each scenario's model (``terminal.py:
-    45-55``): P by doubling, K its gain, gamma = trace P."""
+    45-55``): P by doubling, K its gain, gamma = trace P.
+
+    ``kernel`` (the engine sets it on ``qp_backend='pallas'``) takes the
+    kernel route for models of at most 32 states and 4 inputs
+    (``ops/dare_terminal.py::supported(nz, m)``): on CUDA tensors one
+    launch of ``csrc/dare_terminal.cu`` (``dare_terminal``), on others
+    this function's plain synthesis; on every device that route refuses
+    autograd. Wider models, and ``kernel=False``, run the plain synthesis:
+    ``control/dare.py``'s doubling and gain and the trace of P."""
     with profiling.span("kx.terminal"):
+        if kernel and kernel_route.supported(*model.B.shape[-2:]):
+            profiling.count("terminal.kernel_rows", model.A.shape[0])
+            if model.A.is_cuda:
+                return TerminalCert(*kernel_route.dare_terminal(
+                    model.A, model.B, q_lift, r, iters=iters))
+            refuse_autograd(model.A, model.B, q_lift, r,
+                            kernel="terminal-synthesis")
         p = solve_dare_doubling(model.A, model.B, q_lift, r, iters=iters)
         k = dlqr_gain(model.A, model.B, q_lift, r, p)
         gamma = p.diagonal(dim1=-2, dim2=-1).sum(-1)

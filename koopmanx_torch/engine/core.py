@@ -427,7 +427,8 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
                                      psi, u_max=params.u_max[..., 0])
             new = (res.p, res.k, res.gamma)  # u = K z convention (ref :361)
         else:
-            tc = synthesize_terminal(model, params.q_lift, params.r_block)
+            tc = synthesize_terminal(model, params.q_lift, params.r_block,
+                                     kernel=cfg.qp_backend == "pallas")
             # dlqr gives u = -K z; the certificate holds the reference's
             # u = K z
             new = (tc.p, -tc.k, tc.gamma)

@@ -105,15 +105,16 @@ def _check(minv: Tensor, vecs, rho: Tensor, iters: int) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def refuse_autograd(*tensors) -> None:
+def refuse_autograd(*tensors, kernel: str = "box-ADMM") -> None:
     """Raise ``ValueError`` where grad mode is on and one of ``tensors``
-    (None skipped) requires grad: the kernel route has no gradient, as the
-    JAX package's Pallas route has none. The differentiable route is the
-    plain one, ``qp_backend='xla'``."""
+    (None skipped) requires grad: the kernel route (of the ``kernel``
+    named in the message) has no gradient, as the JAX package's Pallas
+    route has none. The differentiable route is the plain one,
+    ``qp_backend='xla'``."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise ValueError(
-            "the box-ADMM kernel route has no gradient (nor has the JAX "
+            f"the {kernel} kernel route has no gradient (nor has the JAX "
             "package's Pallas route): differentiate the closed loop on "
             "qp_backend='xla'")
 

@@ -9,8 +9,9 @@ The config is the JAX tool's (``tools/bench_terminal.py:41-53``):
 nlift 8, ``terminal_synthesis=True`` with ``terminal_mode='dare'``, the
 plant switch at steps // 2, scenarios from ``sample_scenarios`` at
 ``param_scale=0.15`` (seed 0); on the card the box QP runs the box-ADMM
-kernel, one launch a step. One warm-up run, then the best of 3 runs, each
-between two device synchronizations.
+kernel and the synthesis the terminal-synthesis kernel
+(``ops/dare_terminal.py``), one launch each a step. One warm-up run, then
+the best of 3 runs, each between two device synchronizations.
 
 ``USE_LAPACK=1`` is the library A/B: the hand-written Gauss-Jordan
 routines of ``ops/linalg.py`` (``spd_inverse``, ``gj_inverse``,
@@ -19,16 +20,21 @@ imported from it are rebound to ``torch.linalg.inv`` and
 ``torch.linalg.solve``: the call sites the JAX tool rebinds
 (``tools/bench_terminal.py:20-34``), no more and no less. The engine's
 KKT inverse (``engine/core.py``) keeps its own binding in both tools.
+Those are the plain route's names: on the kernel route the synthesis
+runs the terminal-synthesis kernel in both variants, so the A/B of the
+library against the Gauss-Jordan routines is made on the plain route
+(``BENCH_QP_BACKEND=xla`` on the card, or the CPU).
 
 Knobs (environment): ``BENCH_BATCH`` (512), ``BENCH_STEPS`` (30),
-``USE_LAPACK`` (0), ``BENCH_DEVICE=cpu`` for the CPU (the plain route).
-It runs on the card otherwise and raises without one. One JSON line, the
-JAX tool's keys plus the card's name and power limit, the box-ADMM
-kernel's launches over the timed runs and the steps they ran. It imports
-no JAX.
+``USE_LAPACK`` (0), ``BENCH_QP_BACKEND`` (the device's route: ``pallas``
+on the card, ``xla`` on the CPU), ``BENCH_DEVICE=cpu`` for the CPU. It
+runs on the card otherwise and raises without one. One JSON line, the
+JAX tool's keys plus the card's name and power limit, the box-ADMM and
+terminal-synthesis kernels' launches over the timed runs and the steps
+they ran. It imports no JAX.
 
   BENCH_BATCH=512 BENCH_STEPS=30 python tools/bench_terminal_torch.py
-  USE_LAPACK=1 python tools/bench_terminal_torch.py
+  BENCH_QP_BACKEND=xla USE_LAPACK=1 python tools/bench_terminal_torch.py
 """
 from __future__ import annotations
 
@@ -87,8 +93,9 @@ def library_routines():
             setattr(mod, name, fn)
 
 
-def config(steps: int, device):
-    """The JAX tool's config on ``device``'s route."""
+def config(steps: int, device, backend: str = None):
+    """The JAX tool's config on ``backend``, by default ``device``'s
+    route."""
     from koopmanx_torch import configs as C
     from koopmanx_torch.device import default_qp_backend
 
@@ -100,7 +107,7 @@ def config(steps: int, device):
     cfg.lift = C.LiftConfig(kind="mlp", nlift=8)
     cfg.mpc.terminal_synthesis = True
     cfg.mpc.terminal_mode = "dare"
-    cfg.mpc.qp_backend = default_qp_backend(device)
+    cfg.mpc.qp_backend = backend or default_qp_backend(device)
     return cfg
 
 
@@ -117,6 +124,7 @@ def scenarios(batch: int, device, dtype=torch.float32):
 def run_bench(env) -> dict:
     from koopmanx_torch.device import card_line, resolve_device
     from koopmanx_torch.ops.box_admm import box_admm
+    from koopmanx_torch.ops.dare_terminal import dare_terminal
     from koopmanx_torch.run import build_pipeline, run_scenarios
 
     batch = int(env.get("BENCH_BATCH", "512"))
@@ -126,12 +134,15 @@ def run_bench(env) -> dict:
                             else None)
     sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
     with library_routines() if lapack else contextlib.nullcontext():
-        pipe = build_pipeline(config(steps, device), device=device)
+        pipe = build_pipeline(config(steps, device,
+                                     env.get("BENCH_QP_BACKEND")),
+                              device=device)
         sc = scenarios(batch, device)
         _, log = run_scenarios(pipe, sc)
         if not bool(torch.isfinite(log.x).all()):
             raise RuntimeError("non-finite trajectory")
         best, before = float("inf"), box_admm.launches
+        before_dare = dare_terminal.launches
         for _ in range(TIMED_RUNS):
             log = None
             sync()
@@ -140,6 +151,7 @@ def run_bench(env) -> dict:
             sync()
             best = min(best, time.perf_counter() - t0)
         launches = box_admm.launches - before
+        dare_launches = dare_terminal.launches - before_dare
     return {
         "workload": "duffing + per-step DARE terminal synthesis",
         "lapack": lapack,
@@ -149,6 +161,7 @@ def run_bench(env) -> dict:
         "steps": steps,
         "qp_backend": pipe.config.mpc.qp_backend,
         "box_admm_launches": launches,
+        "dare_terminal_launches": dare_launches,
         "steps_run": TIMED_RUNS * steps,
         "finite": bool(torch.isfinite(log.x).all()),
         "card": card_line() if device.type == "cuda" else None,
