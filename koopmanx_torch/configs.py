@@ -36,7 +36,7 @@ class LiftConfig:
     nlift: int = 8
     hidden: int = 100
     rbf_type: str = "thinplate"
-    rbf_centers: str = "kmeans"
+    rbf_centers: str = "kmeans"  # kmeans | random | a .mat file of centers
     rff_bandwidth: float = 1.0
     state_augmented: bool = False
     zero_offset: bool = False

@@ -1,7 +1,7 @@
 """RunConfig -> pipeline -> closed-loop results (counterpart of
 ``koopmanx/run.py``: ``build_dictionary`` :54-117 (mlp, with the
 ``.mat`` or ``.pkl`` weights and their fallback; rbf with random or
-k-means centers; random Fourier features; the identity, Hermite and
+k-means centers, or centers pinned in a ``.mat`` file; random Fourier features; the identity, Hermite and
 monomial lifts), ``_mpc_params`` :132-203 (lifted tracking included), ``engine_config`` :206-251, ``_ref_fn``
 :254-280 and ``build_pipeline`` :282-412, with every estimator's initial
 state: the windowed estimator's prefilled ring, compressed or not, and the
@@ -100,12 +100,54 @@ def load_mlp_weights(path: str, dtype: torch.dtype):
     return None
 
 
+def rbf_centers(cfg: C.RunConfig, data: Snapshots,
+                gen: torch.Generator) -> Tensor:
+    """An RBF lift's (nlift, n) centers by ``lift.rbf_centers``:
+    ``'kmeans'`` over the training states or ``'random'`` ~ U[0, 1)^n,
+    drawn from ``gen``; or a ``.mat`` file (a relative path against the
+    repo root) whose ``centers`` they are, as pinned by
+    ``tools/write_rbf_centers.py``. Any other value raises."""
+    lc = cfg.lift
+    dtype = torch_dtype(cfg.dtype)
+    n = get_system(cfg.system).n
+    if lc.rbf_centers == "kmeans":
+        return kmeans(gen, data.x.to(dtype), lc.nlift)[0]
+    if lc.rbf_centers == "random":
+        return uniform(gen, (lc.nlift, n), 0.0, 1.0, dtype)
+    if not lc.rbf_centers.endswith(".mat"):
+        raise ValueError(f"unknown rbf_centers {lc.rbf_centers!r}: 'kmeans', "
+                         "'random' or a .mat file")
+    import scipy.io
+
+    centers = torch.as_tensor(scipy.io.loadmat(
+        os.path.join(REPO_ROOT, lc.rbf_centers))["centers"]).to(dtype)
+    if centers.shape != (lc.nlift, n):
+        raise ValueError(f"{lc.rbf_centers}: centers of shape "
+                         f"{tuple(centers.shape)}, not ({lc.nlift}, {n})")
+    return centers
+
+
+def training_snapshots(cfg: C.RunConfig, gen: torch.Generator) -> Snapshots:
+    """The training snapshots of ``cfg.data``, drawn from ``gen``, on the
+    CPU."""
+    return collect(
+        get_system(cfg.system), gen,
+        n_step=cfg.data.n_step,
+        n_traj=cfg.data.n_traj,
+        h=cfg.data.h,
+        u_range=cfg.data.u_range,
+        x0_range=cfg.data.x0_range,
+        integrator=cfg.integrator,
+        clamp_x0=cfg.data.clamp_x0,
+        dtype=torch_dtype(cfg.dtype),
+    )
+
+
 def build_dictionary(cfg: C.RunConfig, data: Snapshots,
                      gen: torch.Generator) -> Dictionary:
     """The lift: an MLP (its ``.mat`` weights or a ``.pkl`` checkpoint's
     encoder, or a random He init from ``gen``), thinplate-family RBFs
-    with k-means centers over the training states or centers
-    ~ U[0, 1)^n, or random Fourier features whose bandwidth is in units
+    with centers from :func:`rbf_centers`, or random Fourier features whose bandwidth is in units
     of the training states' std (ddof 0, floored at 1e-3), all drawn
     from ``gen``; or psi(x) = x, the tensor-product
     Hermite lift of degree 4 (nlift 25) or the five monomials (the last
@@ -127,11 +169,7 @@ def build_dictionary(cfg: C.RunConfig, data: Snapshots,
             d = encoder_dictionary(mlp_init(gen, sizes, dtype=dtype),
                                    n=system.n)
     elif lc.kind == "rbf":
-        if lc.rbf_centers == "kmeans":
-            centers, _ = kmeans(gen, data.x.to(dtype), lc.nlift)
-        else:
-            centers = uniform(gen, (lc.nlift, system.n), 0.0, 1.0, dtype)
-        d = rbf_dictionary(centers, lc.rbf_type)
+        d = rbf_dictionary(rbf_centers(cfg, data, gen), lc.rbf_type)
     elif lc.kind == "fourier":
         scale = torch.clamp(data.x.to(dtype).std(0, correction=0), min=1e-3)
         w, b = rff_init(gen, system.n, lc.nlift, bandwidth=lc.rff_bandwidth,
@@ -363,17 +401,7 @@ def build_pipeline(cfg: C.RunConfig, x_init=None,
     dtype = torch_dtype(cfg.dtype)
     engine_cfg = engine_config(cfg)
     gen = torch.Generator().manual_seed(cfg.seed)
-    data = collect(
-        system, gen,
-        n_step=cfg.data.n_step,
-        n_traj=cfg.data.n_traj,
-        h=cfg.data.h,
-        u_range=cfg.data.u_range,
-        x0_range=cfg.data.x0_range,
-        integrator=cfg.integrator,
-        clamp_x0=cfg.data.clamp_x0,
-        dtype=dtype,
-    )
+    data = training_snapshots(cfg, gen)
     dictionary = build_dictionary(cfg, data, gen)
     with torch.no_grad():
         model0 = edmd_fit(dictionary, data)

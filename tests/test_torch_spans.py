@@ -4,7 +4,10 @@ loop's carry and logs are the same bit for bit, the counts are those of
 the work (lifts a solve, models held by the guard), and under
 ``torch.profiler`` the ``kx.*`` spans nest as the step runs them, the
 step's span carrying its index. The flagship and Revise_2 presets, 16
-scenarios, float32, the kernel route (its plain version on the CPU)."""
+scenarios, float32, the kernel route (its plain version on the CPU); and
+the Woodbury lane's spans and counters in the benchmark's
+``duffing_rbf128`` (nlift 128), off at no operation's cost."""
+import collections
 import json
 
 import pytest
@@ -183,3 +186,118 @@ def test_trace_writes_the_counters(pipes, tmp_path):
     trace = json.loads((tmp_path / "t" / "trace.json").read_text())
     steps = [e for e in trace["traceEvents"] if e.get("name") == "kx.step"]
     assert [e["args"]["step"] for e in steps] == list(range(STEPS))
+
+
+# -- the Woodbury lane of the windowed estimator (duffing_rbf128) ---------
+
+WINDOW_SPANS = ("kx.window_motion", "kx.window_sm", "kx.window_polish",
+                "kx.window_write", "kx.window_model")
+
+
+@pytest.fixture(scope="module")
+def woodbury():
+    """The benchmark's ``duffing_rbf128`` (its pinned centers, nlift 128, the
+    window of 256) at 4 steps, its pipeline and scenarios."""
+    from benchmark import spec
+
+    cfg = C.RunConfig.from_dict(
+        spec.part(spec.ROOT, "configs", "duffing_rbf128")["run_config"])
+    cfg.steps = STEPS
+    pipe = build_pipeline(cfg, device="cpu")
+    sc = sample_scenarios(get_system(cfg.system),
+                          torch.Generator().manual_seed(0), BATCH,
+                          param_scale=0.15, device="cpu")
+    return pipe, sc
+
+
+def _update_args(pipe, sc, batch=BATCH):
+    from koopmanx_torch.run import replicate
+
+    state = replicate(pipe.rls0, batch)
+    z = pipe.dictionary(sc.x0[:batch])
+    u = torch.full((batch, 1), 0.5)
+    return state, z, u, z.flip(-1), sc.x0[:batch]
+
+
+def _op_names(fn):
+    """The names of the spans and of the outermost operations ``fn`` runs
+    (those under no other operation: a span is none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+
+    def outermost(e):
+        parent = e.cpu_parent
+        while parent is not None and parent.name.startswith("kx."):
+            parent = parent.cpu_parent
+        return parent is None
+
+    return [e.name for e in prof.events()
+            if e.name.startswith("kx.") or outermost(e)]
+
+
+def test_woodbury_spans_add_no_operation_when_off(woodbury, monkeypatch):
+    """Off, ``window_update_carry`` and ``window_model_carry`` record no
+    span and launch what they did before the spans: on, the only
+    operations added are the spans and the safeguard's count (one sum an
+    inverse), the counter's own accumulation left out. Outermost
+    operations: a sum of booleans runs a cast inside it."""
+    from koopmanx_torch.edmd.windowed import (window_model_carry,
+                                              window_update_carry)
+
+    pipe, sc = woodbury
+    args = _update_args(pipe, sc)
+    run = lambda: window_model_carry(window_update_carry(*args, polish=2),
+                                     pipe.dictionary.nlift)
+    monkeypatch.setattr(profiling, "count_device", lambda name, t: None)
+    off = _op_names(run)
+    profiling.enable(True)
+    on = _op_names(run)
+    profiling.enable(False)
+    assert not any(n.startswith("kx.") for n in off)
+    spans = collections.Counter(n for n in on if n.startswith("kx."))
+    assert spans == collections.Counter(WINDOW_SPANS)
+    added = (collections.Counter(n for n in on if not n.startswith("kx."))
+             - collections.Counter(off))
+    assert added == collections.Counter({"aten::sum": 2})
+    assert not collections.Counter(off) - collections.Counter(on)
+
+
+def test_woodbury_counters_count_the_rows(woodbury):
+    (carry, log), counts = _run(*woodbury, on=True)
+    assert counts["window.rows"] == BATCH * STEPS
+    assert counts["window.reseeded"] == 0
+    assert torch.isfinite(log.x).all()
+
+
+def test_woodbury_spans_nest_in_the_estimator(woodbury):
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.enable(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run_scenarios(*woodbury)
+    profiling.enable(False)
+    spans = [e for e in prof.events() if e.name in WINDOW_SPANS]
+    assert collections.Counter(e.name for e in spans) == {
+        name: STEPS for name in WINDOW_SPANS}
+    assert all(_kx_parent(e) == "kx.estimator" for e in spans)
+
+
+@pytest.mark.parametrize("poisoned", [1, 3])
+def test_a_poisoned_inverse_is_reseeded_and_counted(woodbury, poisoned):
+    """NaN in the carried inverse of the first ``poisoned`` scenarios: the
+    safeguard re-seeds exactly those, and counts each once."""
+    from koopmanx_torch.edmd.windowed import window_update_carry
+
+    pipe, sc = woodbury
+    state, *rows = _update_args(pipe, sc)
+    g_inv = state.g_inv.clone()
+    g_inv[:poisoned] = float("nan")
+    profiling.enable(True)
+    new = window_update_carry(state._replace(g_inv=g_inv), *rows, polish=2)
+    counts = profiling.counters()
+    profiling.enable(False)
+    assert counts["window.reseeded"] == poisoned
+    assert counts["window.rows"] == BATCH
+    assert torch.isfinite(new.g_inv).all()
