@@ -4,8 +4,7 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device and the CUDA toolkit (nvcc); it exits non-zero without them,
 or without the rest of the repository beside it. Three kernels, each
-replacing a TPU kernel of the JAX package, and a fourth that replaces
-none:
+replacing a TPU kernel of the JAX package, and two that replace none:
 
 - ``box_admm`` (``csrc/box_admm.cu``; ``koopmanx/ops/qp_pallas_box.py``),
   on the flagship loop's path;
@@ -21,13 +20,22 @@ none:
 - ``dare_terminal`` (S1, ``csrc/dare_terminal.cu``, one library a width
   nz; the JAX package leaves the per-step terminal synthesis to XLA), the
   DARE by doubling, its gain and trace P of every scenario in one launch,
-  on the per-step synthesis's kernel route.
+  on the per-step synthesis's kernel route;
+- ``qp_build`` (Q1, ``csrc/qp_build.cu``, one library a shape (nz, m, py,
+  N); the JAX package leaves the build to XLA), each scenario's condensed
+  box QP (P and q from A, B, CyC, z, the reference window and the
+  weights) in one launch, on the kernel route's box path with the 'dag'
+  Markov build where ``ops/qp_build.py::supported`` takes the shape: one
+  launch a step beside each ``box_admm`` launch, but for the loops whose
+  shape it refuses (rbf128, duffing_rff, tank_mimo, the lifted-tracking
+  VDP loops) or whose QP has extra rows or another Markov build.
 
 Phases, each of which fails the run on error:
 
 1. build every kernel from ``koopmanx_torch/csrc`` (one nvcc per source,
    all started together, and the native C++ plant of ``csrc/`` by g++
-   beside them; then S1 at each width of DARE_WIDTHS, one nvcc each),
+   beside them; then S1 at each width of DARE_WIDTHS and Q1 at each
+   shape of QP_BUILD_SHAPES, one nvcc each),
    print each one's register, stack and spill
    report (and fail if ptxas gives a ``fused_qp`` or ``fused_qp_soa``
    instance any stack or spills) and the card's name and power limit;
@@ -66,11 +74,24 @@ Phases, each of which fails the run on error:
    0.1 or more (no digit in either version); then its device ms at 65,536 and at 512 beside
    the plain synthesis's, the library's (``USE_LAPACK=1``'s routines) and
    the bound of ``benchmark/roofline.py::terminal_work``, and its
+   registers, warps a block, resident warps per SM and waves. Q1
+   (``tools/check_qp_build.py``'s checks and timings) at each shape of
+   its EDGES on 97 scenarios and at both cells' shapes
+   (``duffing.sweep-256k``: B = 262,144, nz 8, m 1, py 2, N 10;
+   ``revise2.sweep-64k``: B = 65,536, nz 10, with a per-scenario terminal
+   block), in float64 and float32 with f_clamp on: the same entries
+   non-finite as the plain build, each scenario's P and q within 1e-12
+   (float64) or 1e-5 (float32, or ten times the plain build's change from
+   one ulp of A) of its largest entry; then, in float32 at both cells'
+   shapes, its device ms beside the plain build's and the bound of the
+   tool's ``work`` (the flagship cell's under QP_BUILD_MAX_MS), and its
    registers, warps a block, resident warps per SM and waves;
 3. drive the slice-1 path through the user entry points: the flagship
    batched Duffing closed loop (8192 scenarios x 200 steps, f32, horizon
    20, plant switch at step 100, qp_backend='pallas'), with every kernel
-   launch count zeroed just before and read just after;
+   launch count zeroed just before and read just after: 200 ``box_admm``
+   and 200 ``qp_build`` launches (the run Q1's ``launches`` on the
+   kernels line counts);
 4. run the same loop through the plain route (qp_backend='xla') and hold
    the two against each other: the first 16 steps tightly in float64, then
    the batch-mean control quality of the float32 200-step runs. Beside the
@@ -179,13 +200,14 @@ Phases, each of which fails the run on error:
    bench's ``BENCH_PRESET=revise2_duffing``: N = 20, the SM RLS
    warm-started from the batch Grams, the MATLAB RK4, the fallback
    encoder with the state, nlift 10; cut from the bench's 200 steps to 50,
-   the switch at 25: 50 ``box_admm`` and 50 ``dare_terminal`` launches,
-   then 0; the run S1's ``launches`` on the kernels line counts),
-   ``revise2_vdp_bench_config`` (lifted tracking, the full P injected; cut
-   to 16 steps, the switch at 8; 16 of each) and ``toy1d_bench_config`` (the
-   one-state plant, no
-   synthesis; cut to 40 steps, the switch at 20, where its parameters do
-   not change). Gates: u finite within the preset's box, the model, the
+   the switch at 25: 50 ``box_admm``, 50 ``dare_terminal`` and 50
+   ``qp_build`` launches, then 0; the run S1's ``launches`` on the kernels
+   line counts), ``revise2_vdp_bench_config`` (lifted tracking, the full P
+   injected; cut to 16 steps, the switch at 8; 16 ``box_admm`` and 16
+   ``dare_terminal``, no ``qp_build``: N py = 160 outputs) and
+   ``toy1d_bench_config`` (the one-state plant, no synthesis; cut to 40
+   steps, the switch at 20, where its parameters do not change; 40 of B1
+   and Q1). Gates: u finite within the preset's box, the model, the
    estimator and the held certificate (P, K, gamma) finite in every
    scenario, x finite but for scenarios escaped as in phase 13, the
    float64 kernel vs plain gate of phase 13 with its floor taken over
@@ -449,6 +471,21 @@ PRESET_NX = 10
 # revise2_vdp's 8, segments that leave lanes over (3, with m = 2), one
 # warp a scenario (16, 32) and one lane (1)
 DARE_WIDTHS = (10, 8, 3, 16, 32, 1)
+# Q1's shapes (nz, m, py, N), one library each, built in phase 1 so that no
+# timed phase runs nvcc: those of the loops that take the kernel route
+# (the flagship, the bf16 and float64 flagships, the serving fleet, the
+# carried-inverse and estimator variants; the shipped duffing preset, the
+# terminal bench and the examples at N = 10; the tank with du; the
+# revise2_duffing bench and vdp_rbf; toy1d; pendulum; the local-linear
+# loop; the L7 lifts hermite, monomial and identity), then those
+# tools/check_qp_build.py checks in phase 2 (its CELLS and EDGES)
+QP_BUILD_LOOP_SHAPES = ((8, 1, 2, 20), (8, 1, 2, 10), (11, 1, 1, 20),
+                        (10, 1, 2, 20), (9, 1, 1, 20), (14, 1, 2, 20),
+                        (3, 1, 2, 20), (25, 1, 2, 20), (5, 1, 2, 20),
+                        (2, 1, 2, 20))
+# Q1 alone at the flagship cell's shape (B = 262,144, float32) takes under
+# this many ms a launch (it measured 0.33 on an H100 at 700 W)
+QP_BUILD_MAX_MS = 0.5
 # plain vs kernel closed loop, identical but for that reassociation. During
 # the scratch-RLS warm-up the loop amplifies a round-off seed by many orders
 # of magnitude (tests/test_kkt_refine.py:53-59 documents it for the JAX
@@ -1202,17 +1239,19 @@ def kernel_counters():
     from koopmanx_torch.ops import fused_qp_solve, fused_qp_solve_soa
     from koopmanx_torch.ops.box_admm import box_admm
     from koopmanx_torch.ops.dare_terminal import dare_terminal
+    from koopmanx_torch.ops.qp_build import qp_build
 
     return {"box_admm": box_admm, "fused_qp": fused_qp_solve,
             "fused_qp_soa": fused_qp_solve_soa,
-            "dare_terminal": dare_terminal}
+            "dare_terminal": dare_terminal, "qp_build": qp_build}
 
 
-def launches_of(box_admm: int, dare_terminal: int = 0):
-    """:func:`read_counts` of a run that launched B1 ``box_admm`` times and
-    S1 ``dare_terminal`` times, and the fused kernels never."""
+def launches_of(box_admm: int, dare_terminal: int = 0, qp_build: int = 0):
+    """:func:`read_counts` of a run that launched B1 ``box_admm`` times, S1
+    ``dare_terminal`` times and Q1 ``qp_build`` times, and the fused
+    kernels never."""
     return {"box_admm": box_admm, "fused_qp": 0, "fused_qp_soa": 0,
-            "dare_terminal": dare_terminal}
+            "dare_terminal": dare_terminal, "qp_build": qp_build}
 
 
 def zero_counts() -> None:
@@ -1544,6 +1583,90 @@ def phase_dare_terminal_checks(device):
     }
 
 
+def qp_build_shapes():
+    """Every shape phase 1 builds Q1 at: QP_BUILD_LOOP_SHAPES, then
+    ``tools/check_qp_build.py``'s cells and edges, each once."""
+    tool = tool_module("check_qp_build")
+    return list(dict.fromkeys([*QP_BUILD_LOOP_SHAPES,
+                               *(shape for _, _, shape, _ in tool.CELLS),
+                               *tool.EDGES]))
+
+
+def phase_qp_build_checks(device):
+    """Phase 2's Q1 part, by ``tools/check_qp_build.py``: the kernel
+    against the plain build at each of its EDGES (97 scenarios) and at
+    both cells' shapes, float64 and float32; then its timings at the
+    cells' shapes, the flagship cell's under QP_BUILD_MAX_MS. Returns the
+    kernels-line entry (``launches`` filled from phase 3's run)."""
+    import torch
+
+    tool = tool_module("check_qp_build")
+    shapes = [shape for _, _, shape, _ in tool.CELLS] + tool.EDGES
+    runs = [(shape, 97, i % 2 == 0) for i, shape in enumerate(shapes)]
+    runs += [(shape, batch, term) for _, batch, shape, term in tool.CELLS]
+    cases = []
+    for i, (shape, batch, term) in enumerate(runs):
+        for dtype in (torch.float64, torch.float32):
+            row = tool.check(device, shape, batch, term, dtype, seed=i)
+            cases.append(row)
+            print(f"kernel qp_build {row['dtype']} B={batch} (nz, m, py, N) "
+                  f"= {tuple(shape)}, terminal {term}: worst |kernel-plain|"
+                  f" / max|plain| (P, q) {row['worst_rel']}, of the bound "
+                  f"{row['worst_ratio_to_bound']} (rtol {row['rtol']:.0e}),"
+                  f" finiteness differs {row['finite_differs']}", flush=True)
+            if not row["held"]:
+                fail(f"qp_build disagrees with the plain build: {row}")
+    rows = [tool.timing(device, cell, batch, shape, term)
+            for cell, batch, shape, term in tool.CELLS]
+    for row in rows:
+        shape = row["launch_shape"]
+        print(f"kernel qp_build float32 {row['cell']} B={row['batch']} "
+              f"(nz, m, py, N) = {tuple(row['shape'])}: "
+              f"{row['kernel_ms']:.4f} ms device, plain "
+              f"{row['plain_ms']:.2f} ms, bound {row['bound_ms']:.5f} ms by "
+              f"{row['bound_by']} ({row['roofline_pct']:.2f} % of it); "
+              f"{shape['registers']} registers, {shape['warps_per_block']} "
+              f"warps/block, {shape['scenarios_per_warp']} scenarios/warp, "
+              f"{shape['resident_warps_per_sm']} resident warps/SM, "
+              f"{shape['waves']} waves", flush=True)
+        if not (math.isfinite(row["kernel_ms"])
+                and math.isfinite(row["plain_ms"])):
+            fail(f"qp_build timing not finite: {row}")
+    main, revise2 = rows
+    if not main["kernel_ms"] < QP_BUILD_MAX_MS:
+        fail(f"qp_build takes {main['kernel_ms']} ms at the flagship cell's "
+             f"shape, not under {QP_BUILD_MAX_MS}")
+    held = [c for c in cases if c["batch"] == main["batch"]]
+    return {
+        "name": "qp_build",
+        "route": "cuda",
+        "source": "koopmanx_torch/csrc/qp_build.cu",
+        "replaces": None,  # the JAX package leaves the build to XLA
+        "launches": None,
+        "worst_rel": {c["dtype"]: c["worst_rel"] for c in held},
+        "worst_ratio_to_bound": {c["dtype"]: c["worst_ratio_to_bound"]
+                                 for c in held},
+        "ms": main["kernel_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "bound_share": main["bound_ms"] / main["kernel_ms"],
+        "registers": main["launch_shape"]["registers"],
+        "registers_from": "runtime",
+        "resident_warps_per_sm": main["launch_shape"][
+            "resident_warps_per_sm"],
+        "warps_per_block": main["launch_shape"]["warps_per_block"],
+        "scenarios_per_warp": main["launch_shape"]["scenarios_per_warp"],
+        "waves": main["launch_shape"]["waves"],
+        "shape": dict(zip(("nz", "m", "py", "horizon"), main["shape"]))
+        | {"batch": main["batch"], "dtype": "float32"},
+        "at_revise2_cell": {k: revise2[k] for k in (
+            "batch", "shape", "terminal", "kernel_ms", "plain_ms",
+            "bound_ms", "roofline_pct", "launch_shape")},
+        "checks": cases,
+    }
+
+
 def quality(log, tail: int = 50):
     """Batch-mean tracking MSE and steady-state error of x1 against r1."""
     err = log.x[..., 0] - log.r[..., 0]
@@ -1647,7 +1770,6 @@ def phase_tank(device, card: str):
     """Phase 7: the tank path through both routes, with its gates. Returns
     the kernel route's launch counts."""
     import torch
-    from koopmanx_torch.ops.box_admm import box_admm
 
     run_kernel = tank_loop("pallas", device)
     zero_counts()
@@ -1655,15 +1777,15 @@ def phase_tank(device, card: str):
     counts = read_counts()
     print(f"phase 7 tank path (pallas): {cold_k:.2f} s cold, launches "
           f"{counts}", flush=True)
-    if counts != launches_of(TANK_STEPS):
+    if counts != launches_of(TANK_STEPS, qp_build=TANK_STEPS):
         fail(f"the tank path launched {counts} in {TANK_STEPS} steps")
     bounds_k = check_tank_loop(carry_k, log_k, "pallas")
 
     run_plain = tank_loop("xla", device)
-    box_admm.launches = 0
+    zero_counts()
     (carry_p, log_p), cold_p = timed(run_plain)
-    if box_admm.launches != 0:
-        fail("the tank plain route launched the kernel")
+    if any(read_counts().values()):
+        fail(f"the tank plain route launched {read_counts()}")
     bounds_p = check_tank_loop(carry_p, log_p, "xla")
     early = {}
     for backend in ("pallas", "xla"):
@@ -1744,7 +1866,7 @@ def phase_duffing_preset(device, flagship_quality):
               "flagship_random_init_mse_x1": flagship_quality[0],
               "flagship_random_init_sse_x1": flagship_quality[1]}
     print("phase 8 duffing preset " + json.dumps(report), flush=True)
-    if counts["box_admm"] != PRESET_STEPS:
+    if counts != launches_of(PRESET_STEPS, qp_build=PRESET_STEPS):
         fail(f"the duffing preset launched {counts} in {PRESET_STEPS} steps")
     check_loop(carry, log, "duffing preset", PRESET_STEPS)
     return counts, log, run
@@ -1810,23 +1932,22 @@ def run_with_memory(fn):
 def phase_rbf128(device, card: str):
     """Phase 9: the rbf128 bench loop through both routes, with its gates.
     Returns the kernel route's launch counts and a report for phase 10."""
-    from koopmanx_torch.ops.box_admm import box_admm
-
     run_kernel = rbf128_loop("pallas", device)
     zero_counts()
     (carry_k, log_k), cold_k, mem_k = run_with_memory(run_kernel)
     counts = read_counts()
     print(f"phase 9 rbf128 path (pallas): {cold_k:.2f} s cold, launches "
           f"{counts}, peak {mem_k / 2**30:.2f} GiB", flush=True)
+    # nlift 128 > qp_build.MAX_NZ: the plain build, no Q1 launch
     if counts != launches_of(RBF128_STEPS):
         fail(f"the rbf128 path launched {counts} in {RBF128_STEPS} steps")
     check_woodbury_loop(carry_k, log_k, "rbf128 pallas")
 
     run_plain = rbf128_loop("xla", device)
-    box_admm.launches = 0
+    zero_counts()
     (carry_p, log_p), cold_p, mem_p = run_with_memory(run_plain)
-    if box_admm.launches != 0:
-        fail("the rbf128 plain route launched the kernel")
+    if any(read_counts().values()):
+        fail(f"the rbf128 plain route launched {read_counts()}")
     check_woodbury_loop(carry_p, log_p, "rbf128 xla")
     early, mem64 = {}, {}
     for backend in ("pallas", "xla"):
@@ -1912,7 +2033,8 @@ def phase_rff_and_bf16(device, rbf128_report):
             "launches": counts[name], "wall_s_cold": wall,
             "peak_gib": mem / 2**30, "u_abs_max": float(log.u.abs().max()),
             "mse_x1": mse, "sse_x1": sse}
-        if counts[name]["box_admm"] != RBF128_STEPS:
+        # nlift 34 and 128 > qp_build.MAX_NZ: no Q1 launch
+        if counts[name] != launches_of(RBF128_STEPS):
             fail(f"{name} launched {counts[name]} in {RBF128_STEPS} steps")
         check_woodbury_loop(carry, log, name)
     print("phase 10 " + json.dumps({"batch": BATCH, "steps": RBF128_STEPS,
@@ -1965,6 +2087,7 @@ def phase_tank_mimo(device, card: str):
     counts = read_counts()
     print(f"phase 11 tank_mimo path (pallas): {cold_k:.2f} s cold, launches "
           f"{counts}, peak {mem_k / 2**30:.2f} GiB", flush=True)
+    # N m = 40 > qp_build.MAX_NX: the plain build, no Q1 launch
     if counts != launches_of(MIMO_STEPS):
         fail(f"the tank_mimo path launched {counts} in {MIMO_STEPS} steps")
     bounds_k = check_mimo_loop(carry_k, log_k, "pallas")
@@ -2213,6 +2336,7 @@ def phase_vdp(device, card: str):
         want = VDP_STEPS if backend == "pallas" else 0
         print(f"phase 13 vdp path ({backend}): {cold:.2f} s cold, launches "
               f"{counts}, peak {mem / 2**30:.2f} GiB", flush=True)
+        # lifted tracking: N py = 160 > qp_build.MAX_NP, no Q1 launch
         if counts != launches_of(want):
             fail(f"the vdp {backend} route launched {counts} in {VDP_STEPS} "
                  "steps")
@@ -2293,23 +2417,27 @@ def phase_estimators(device, card: str):
         cfg.reference = "sine"
         return cfg
 
+    # (make, dtype, whether Q1 builds the QP: not for the lifted-tracking
+    # VDP loop, whose N py = 160 outputs exceed qp_build.MAX_NP)
     cases = {
         "vdp_rbf storage": (lambda b, s: vdp_rbf_bench_config(s, b),
-                            "float32"),
+                            "float32", True),
         "flagship rls_chol, reset_mult 4": (
-            flagship("rls_chol", ridge=1e-2, reset_mult=4.0), "float32"),
-        "flagship rls, float64": (flagship("rls"), "float64"),
-        "vdp sine reference": (vdp_sine, "float32"),
+            flagship("rls_chol", ridge=1e-2, reset_mult=4.0), "float32",
+            True),
+        "flagship rls, float64": (flagship("rls"), "float64", True),
+        "vdp sine reference": (vdp_sine, "float32", False),
     }
     counts, report = {}, {}
-    for name, (make, dtype) in cases.items():
+    for name, (make, dtype, built) in cases.items():
         t0 = time.perf_counter()
         run = config_loop(make("pallas", ESTIMATOR_STEPS), device, dtype)
         cfg = run.pipe.config
         zero_counts()
         (carry, log), wall, mem = run_with_memory(run)
         counts[name] = read_counts()
-        if counts[name] != launches_of(ESTIMATOR_STEPS):
+        if counts[name] != launches_of(
+                ESTIMATOR_STEPS, qp_build=ESTIMATOR_STEPS if built else 0):
             fail(f"{name} launched {counts[name]} in {ESTIMATOR_STEPS} steps")
         escaped, x1_max = check_estimator_loop(
             carry, log, name, ESTIMATOR_STEPS, cfg.mpc.u_max)
@@ -2355,6 +2483,9 @@ def phase_revise2(device, card: str):
     makes = {"revise2_duffing": revise2_duffing_bench_config,
              "revise2_vdp": revise2_vdp_bench_config,
              "toy1d": toy1d_bench_config}
+    # Q1 builds every step's QP on the kernel route but revise2_vdp's
+    # lifted tracking (N py = 160 > qp_build.MAX_NP)
+    built = {"revise2_duffing": True, "revise2_vdp": False, "toy1d": True}
     counts, lines = {}, {}
     for name, make in makes.items():
         t0 = time.perf_counter()
@@ -2370,7 +2501,8 @@ def phase_revise2(device, card: str):
             synth = cfg.mpc.terminal_synthesis
             print(f"phase 15 {name} ({backend}): {cold:.2f} s cold, "
                   f"launches {got}, peak {mem / 2**30:.3f} GiB", flush=True)
-            if got != launches_of(want, want if synth else 0):
+            if got != launches_of(want, want if synth else 0,
+                                  want if built[name] else 0):
                 fail(f"{name} {backend} launched {got} in {steps} steps")
             if backend == "pallas":
                 counts[name] = got
@@ -2619,9 +2751,9 @@ def phase_serving(device, card: str, loops, fused_quality, fused_ms):
             bc, external_plant(pipe, sc), sc.x0, SERVE_CALLS))
         got = read_counts()
         want = SERVE_CALLS if backend == "pallas" else 0
-        if got != launches_of(want):
+        if got != launches_of(want, qp_build=want):
             fail(f"phase 16 fleet ({backend}) launched {got}, not {want} "
-                 "box_admm launches")
+                 "box_admm and qp_build launches")
         check_served(xs, us, f"phase 16 fleet ({backend})", SERVE_CALLS)
         served[backend] = served_quality(xs)
         counts[f"serving fleet, {backend} (phase 16)"] = got["box_admm"]
@@ -2731,7 +2863,7 @@ def phase_serving(device, card: str, loops, fused_quality, fused_ms):
         cli_report[preset] = {"launches": got, **{
             k: summary[k] for k in ("steady_state_error", "u_abs_max",
                                     "tracking_mse", "final_state")}}
-        if got["box_admm"] != steps:
+        if got != launches_of(steps, qp_build=steps):
             fail(f"phase 16 CLI run {preset}: {got} launches in {steps} "
                  "steps")
         if not summary["steady_state_error"] < sse_max:
@@ -2746,7 +2878,8 @@ def phase_serving(device, card: str, loops, fused_quality, fused_ms):
                              str(SWEEP_BATCH), "--steps", str(SWEEP_STEPS)])
     counts["CLI sweep duffing (phase 16)"] = got["box_admm"]
     cli_report["sweep"] = {"launches": got, **summary}
-    if got["box_admm"] != SWEEP_STEPS or summary["finite_fraction"] != 1.0:
+    if (got != launches_of(SWEEP_STEPS, qp_build=SWEEP_STEPS)
+            or summary["finite_fraction"] != 1.0):
         fail(f"phase 16 CLI sweep: {got} launches, finite fraction "
              f"{summary['finite_fraction']}")
     report["cli"] = cli_report
@@ -2907,7 +3040,7 @@ def phase_lmi(device, card: str):
         want = LMI_STEPS if backend == "pallas" else 0
         print(f"phase 17 lmi ({backend}): {wall:.2f} s, launches {got}",
               flush=True)
-        if got != launches_of(want):
+        if got != launches_of(want, qp_build=want):
             fail(f"lmi {backend} launched {got} in {LMI_STEPS} steps")
         finite = finite_rows(log.x, log.u, *carry.cert)
         lost = dare_finite & ~finite
@@ -3048,7 +3181,7 @@ def phase_local_linear(device, card: str):
         want = LOCAL_STEPS if backend == "pallas" else 0
         print(f"phase 17 local-linear ({backend}): {wall:.2f} s, launches "
               f"{got}", flush=True)
-        if got != launches_of(want):
+        if got != launches_of(want, qp_build=want):
             fail(f"local-linear {backend} launched {got}")
         check_loop(carry, log, f"local-linear {backend}", LOCAL_STEPS)
         mse, sse = quality_vs(log, torch.ones(BATCH, dtype=torch.bool,
@@ -3385,7 +3518,7 @@ def phase_selftrained(device, encoder: str, flagship_quality):
         (carry, log), wall = timed(run)
         got = read_counts()
         want = SELFTRAINED_STEPS if backend == "pallas" else 0
-        if got != launches_of(want):
+        if got != launches_of(want, qp_build=want):
             fail(f"duffing_selftrained {backend} launched {got}")
         check_loop(carry, log, f"duffing_selftrained {backend}",
                    SELFTRAINED_STEPS)
@@ -3471,7 +3604,9 @@ def phase_l7(device, end_model):
         (carry, log), wall = timed(run)
         got = read_counts()
         name = f"{key}={value}"
-        if got != launches_of(L7_STEPS):
+        # Q1 takes only the 'dag' Markov build
+        dag = run.pipe.engine_cfg.markov == "dag"
+        if got != launches_of(L7_STEPS, qp_build=L7_STEPS if dag else 0):
             fail(f"{name} launched {got}")
         check_loop(carry, log, name, L7_STEPS)
         counts[name] = got["box_admm"]
@@ -3513,9 +3648,10 @@ def phase_training(device, card: str, end_model, flagship_quality):
     return counts, report
 
 
-def expect_launches(got, want: int, name: str) -> None:
-    if got != launches_of(want):
-        fail(f"{name} launched {got}, not {want} box_admm launches")
+def expect_launches(got, want: int, name: str, qp_build: int = 0) -> None:
+    if got != launches_of(want, qp_build=qp_build):
+        fail(f"{name} launched {got}, not {want} box_admm and {qp_build} "
+             "qp_build launches")
 
 
 def loop_args(run):
@@ -3551,7 +3687,7 @@ def engine_test_loop(device, bf16: bool):
     zero_counts()
     _, log = run_single(pipe)
     expect_launches(read_counts(), BF16_X_STEPS,
-                    f"the engine test's loop (bf16 {bf16})")
+                    f"the engine test's loop (bf16 {bf16})", BF16_X_STEPS)
     return log
 
 
@@ -3568,8 +3704,8 @@ def phase_bf16(device, log_k, log_p, log_n):
         zero_counts()
         (carry, log), wall = timed(run)
         got = read_counts()
-        expect_launches(got, STEPS if backend == "pallas" else 0,
-                        f"bf16 {backend}")
+        want = STEPS if backend == "pallas" else 0
+        expect_launches(got, want, f"bf16 {backend}", want)
         check_loop(carry, log, f"bf16 {backend}", STEPS)
         logs[backend], counts[backend] = log, got["box_admm"]
         mse, sse = quality(log)
@@ -3763,7 +3899,8 @@ def phase_pkl(device, log8, run8):
     zero_counts()
     (carry, log), wall = timed(lambda: run_scenarios(pipe, sc))
     got = read_counts()
-    expect_launches(got, PRESET_STEPS, "the .pkl duffing preset")
+    expect_launches(got, PRESET_STEPS, "the .pkl duffing preset",
+                    PRESET_STEPS)
     check_loop(carry, log, "the .pkl duffing preset", PRESET_STEPS)
     gap = max(float((log.x - log8.x).abs().max()),
               float((log.u - log8.u).abs().max()))
@@ -3831,7 +3968,7 @@ def phase_hil(device, card: str):
         zero = lambda k: zero_counts() if k == 0 else None
         run = bench_hil_torch.serve(cfg, pipe, periods, fleet, on_period=zero)
         got = read_counts()
-        expect_launches(got, periods, f"HIL {preset}")
+        expect_launches(got, periods, f"HIL {preset}", periods)
         out = bench_hil_torch.report(cfg, run, preset, fleet)
         tr = out["tracking"]
         sse = tr.get("steady_state_error",
@@ -3992,7 +4129,7 @@ def phase_mesh_one(device, card: str, run_kernel, log_k, fused_ms: float):
     counts = read_counts()
     report.update({"launches": counts, "ms_per_step": wall / STEPS * 1e3,
                    "phase5_fused_loop_ms_per_step": fused_ms})
-    if counts != launches_of(STEPS):
+    if counts != launches_of(STEPS, qp_build=STEPS):
         fail(f"phase 20 (a): the sharded loop launched {counts}")
     check_loop(carry, log, "phase 20 (a) sharded", STEPS)
     report["x_u_equal_phase3"] = (torch.equal(log.x, log_k.x)
@@ -4576,7 +4713,8 @@ def phase_tune(device):
 
 def phase_kernel_refuses(device):
     """Phase 22 (d): a flagship loop on the kernel route given a log r
-    that requires grad raises ValueError, and B1 never launched."""
+    that requires grad raises ValueError (Q1, which reads the scaled R
+    first, refuses), and no kernel launched."""
     from koopmanx_torch.configs import flagship_config
 
     run = config_loop(flagship_config(STEPS, HORIZON, "pallas"), device)
@@ -4588,7 +4726,7 @@ def phase_kernel_refuses(device):
     else:
         fail("the kernel route returned under autograd")
     counts = read_counts()
-    if counts["box_admm"] != 0:
+    if counts != launches_of(0):
         fail(f"the refused kernel route launched {counts}")
     report = {"raised": "ValueError", "message": message, "launches": counts}
     print("phase 22 (d) kernel route " + json.dumps(report), flush=True)
@@ -4729,8 +4867,8 @@ def example_kernel_routes(device):
         zero_counts()
         result, secs = timed(lambda: fn(device=device))
         got = read_counts()
-        if got != launches_of(launches):
-            fail(f"{name} launched {got}, want {launches}")
+        if got != launches_of(launches, qp_build=launches):
+            fail(f"{name} launched {got}, want {launches} of B1 and Q1")
         metrics = result["metrics"]
         metrics = metrics if "mse" not in metrics else {"loop": metrics}
         if not all(math.isfinite(v) for m in metrics.values()
@@ -5044,7 +5182,6 @@ def main() -> int:
     import threading
 
     from koopmanx_torch.ops import build, native
-    from koopmanx_torch.ops.box_admm import box_admm
 
     device = resolve_device(None)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
@@ -5075,6 +5212,15 @@ def main() -> int:
             print(f"nvcc dare_terminal nz={nz}: {line}", flush=True)
     print(f"phase 1 build: dare_terminal at nz = {list(DARE_WIDTHS)} in "
           f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    qpb_shapes = qp_build_shapes()
+    for shape, lines in tool_module("check_qp_build").build(
+            qpb_shapes).items():
+        for line in lines:
+            print(f"nvcc qp_build (nz, m, py, N) = {shape}: {line}",
+                  flush=True)
+    print(f"phase 1 build: qp_build at {len(qpb_shapes)} shapes in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     for name in ("fused_qp", "fused_qp_soa"):
         for kernel, stack, spill_st, spill_ld in ptxas_stack_and_spills(
                 reports.get(name, "")):
@@ -5092,6 +5238,7 @@ def main() -> int:
                  for name in ("fused_qp", "fused_qp_soa")},
         parent_lib=opts.parent_fused_qp)
     dare_entry = phase_dare_terminal_checks(device)
+    qpb_entry = phase_qp_build_checks(device)
     print(f"phase 2: {time.perf_counter() - t2:.1f} s", flush=True)
     t3 = time.perf_counter()
 
@@ -5102,18 +5249,19 @@ def main() -> int:
     counts = read_counts()
     launches = counts["box_admm"]
     entry["launches"] = launches
+    qpb_entry["launches"] = counts["qp_build"]
     print(f"phase 3 main path (pallas): {cold_k:.2f} s cold, launches "
           f"{counts}", flush=True)
-    if launches != STEPS:
-        fail(f"box_admm launched {launches} times in {STEPS} steps")
+    if counts != launches_of(STEPS, qp_build=STEPS):
+        fail(f"the main path launched {counts} in {STEPS} steps")
     check_loop(carry_k, log_k, "pallas")
 
     # ---- 4. the plain route, and the gate between the two ----
     run_plain = run_loop("xla", device)
-    box_admm.launches = 0
+    zero_counts()
     (carry_p, log_p), cold_p = timed(run_plain)
-    if box_admm.launches != 0:
-        fail("the plain route launched the kernel")
+    if any(read_counts().values()):
+        fail(f"the plain route launched {read_counts()}")
     check_loop(carry_p, log_p, "xla")
     early = {}
     for backend in ("pallas", "xla"):
@@ -5369,8 +5517,23 @@ def main() -> int:
         **{f"bench_terminal {label}, 3 timed runs (phase 23)":
            tools["a"][label]["dare_terminal_launches"]
            for label in TERMINAL_VARIANTS}}
+    qpb_entry["launches_by_path"] = {
+        "flagship (phase 3)": qpb_entry["launches"],
+        "tank (phase 7)": tank_counts["qp_build"],
+        "duffing preset (phase 8)": preset_counts["qp_build"],
+        "rbf128 bench (phase 9)": rbf_counts["qp_build"],
+        "duffing_rff preset (phase 10)": rff_counts["qp_build"],
+        "rbf128 bench, bf16 ring (phase 10)": bf16_counts["qp_build"],
+        "tank_mimo bench (phase 11)": mimo_counts["qp_build"],
+        "vdp bench (phase 13)": vdp_counts["qp_build"],
+        **{f"{name} (phase 14)": c["qp_build"]
+           for name, c in estimator_counts.items()},
+        **{f"{name} bench (phase 15)": c["qp_build"]
+           for name, c in revise2_counts.items()},
+        "revise2_duffing, LMI terminal (phase 17)": lmi_counts["qp_build"],
+        "local-linear (phase 17)": local_counts["qp_build"]}
     print(json.dumps({"kernels": [entry, *fused_entries.values(),
-                                  dare_entry]}), flush=True)
+                                  dare_entry, qpb_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

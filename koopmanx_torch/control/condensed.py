@@ -136,6 +136,20 @@ def prediction_matrices(model: LinearModel, horizon: int,
     return PredictionMatrices(f1=f1, f2=f2)
 
 
+def clamp_prediction(pred: PredictionMatrices, f_clamp: float
+                     ) -> PredictionMatrices:
+    """Under ``f_clamp > 0`` each entry of F1 and F2 as
+    ``nan_to_num(nan=0, +-inf=+-f_clamp)`` then ``clamp(-f_clamp,
+    f_clamp)`` (the engine's guard on a diverged model); else ``pred``."""
+    if f_clamp <= 0.0:
+        return pred
+    fc = f_clamp
+    return type(pred)(*(
+        torch.nan_to_num(f, nan=0.0, posinf=fc, neginf=-fc).clamp(-fc, fc)
+        for f in pred
+    ))
+
+
 def augment_delta_u(model: LinearModel) -> LinearModel:
     """Incremental-input augmentation (``Tank_System.m:107-112``): the
     state becomes [z; u] and the decision du,

@@ -38,8 +38,10 @@ import torch
 from torch import Tensor
 
 from ..control.condensed import (
+    BoxQP,
     augment_delta_u,
     block_diag_repeat,
+    clamp_prediction,
     condensed_qp,
     prediction_matrices,
     weight_bar,
@@ -74,6 +76,7 @@ from ..edmd.windowed import (
     window_update_carry,
 )
 from ..lifts.base import Dictionary
+from ..ops import qp_build
 from ..ops.linalg import ns_tracking_inverse, spd_inverse
 from ..types import LinearModel, QPSolution, model_from_rls
 from ..utils import profiling
@@ -365,6 +368,19 @@ def _has_state_rows(cfg: EngineConfig, params: MPCParams) -> bool:
     return cfg.state_bounds and params.x_min is not None
 
 
+def _takes_build_kernel(cfg: EngineConfig, params: MPCParams, nz: int,
+                        m: int, py: int) -> bool:
+    """Whether the QP build takes ``ops/qp_build.py``'s kernel route: the
+    kernel backend's box path (no applied-window or state-box rows, which
+    read F1 and F2 themselves), the 'dag' Markov build, and a shape the
+    kernel takes (``qp_build.supported``). Everything else builds F1, F2
+    and the QP by the plain composition."""
+    return (cfg.qp_backend == "pallas" and cfg.markov == "dag"
+            and not _has_applied_rows(cfg, params)
+            and not _has_state_rows(cfg, params)
+            and qp_build.supported(nz, m, py, cfg.horizon))
+
+
 def dual_dim(cfg: EngineConfig, params: MPCParams, m: int) -> int:
     """The QP's constraint rows, the size of the 'full' dual warm start
     (``core.py:854-864``): N*m box rows, m applied-window rows under
@@ -491,34 +507,43 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
         else:
             z_qp = z
         with profiling.span("kx.qp_build"):
-            qbar = weight_bar(params.q_block, horizon, terminal)
-            rbar = block_diag_repeat(params.r_block, horizon)
-            pred = prediction_matrices(model, horizon, params.cy,
-                                       cfg.markov)
-            if cfg.f_clamp > 0.0:
-                fc = cfg.f_clamp
-                pred = type(pred)(*(
-                    torch.nan_to_num(f, nan=0.0, posinf=fc,
-                                     neginf=-fc).clamp(-fc, fc)
-                    for f in pred
-                ))
+            py = (model.C if params.cy is None else params.cy).shape[-2]
+            kernel = _takes_build_kernel(cfg, params, model.A.shape[-1], m,
+                                         py)
+            rows = z_qp.shape[:-1].numel()
+            profiling.count("qp_build.rows", rows)
             r_window = ref_fn(step)  # (horizon, py); py = nlift if lifted
-            yr = r_window.flatten(-2)
-            # extra inequality rows: the applied window on du_0
-            # ('rows'; one selector [I_m 0] shared by every scenario),
-            # the state box on the prediction F1 z + F2 x (F2 per
-            # scenario)
             a_rows, l_rows, u_rows = [], [], []
-            if _has_applied_rows(cfg, params):
-                a_rows.append(torch.eye(m, horizon * m, dtype=z.dtype,
-                                        device=z.device))
-                l_rows.append(params.applied_min - u_prev)
-                u_rows.append(params.applied_max - u_prev)
-            if _has_state_rows(cfg, params):
-                f1z = (pred.f1 @ z_qp.unsqueeze(-1)).squeeze(-1)
-                a_rows.append(pred.f2)
-                l_rows.append(params.x_min - f1z)
-                u_rows.append(params.x_max - f1z)
+            if kernel:
+                # one launch of csrc/qp_build.cu (ops/qp_build.py): P and q
+                # of the box QP, F1 and F2 never formed
+                profiling.count("qp_build.kernel_rows", rows)
+                cy_c = (model.C if params.cy is None
+                        else params.cy @ model.C)
+                p_qp, q_qp = qp_build.qp_build(
+                    model.A, model.B, cy_c, z_qp, r_window, params.q_block,
+                    params.r_block, terminal, horizon, cfg.f_clamp)
+            else:
+                qbar = weight_bar(params.q_block, horizon, terminal)
+                rbar = block_diag_repeat(params.r_block, horizon)
+                pred = clamp_prediction(
+                    prediction_matrices(model, horizon, params.cy,
+                                        cfg.markov), cfg.f_clamp)
+                yr = r_window.flatten(-2)
+                # extra inequality rows: the applied window on du_0
+                # ('rows'; one selector [I_m 0] shared by every scenario),
+                # the state box on the prediction F1 z + F2 x (F2 per
+                # scenario)
+                if _has_applied_rows(cfg, params):
+                    a_rows.append(torch.eye(m, horizon * m, dtype=z.dtype,
+                                            device=z.device))
+                    l_rows.append(params.applied_min - u_prev)
+                    u_rows.append(params.applied_max - u_prev)
+                if _has_state_rows(cfg, params):
+                    f1z = (pred.f1 @ z_qp.unsqueeze(-1)).squeeze(-1)
+                    a_rows.append(pred.f2)
+                    l_rows.append(params.x_min - f1z)
+                    u_rows.append(params.x_max - f1z)
             # per-channel bounds (m,) tiled over the horizon
             lo, hi = (v.repeat((1,) * (v.dim() - 1) + (horizon,))
                       for v in (params.u_min, params.u_max))
@@ -552,6 +577,11 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
                 qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi,
                                   a_ineq, torch.cat(l_rows, dim=-1),
                                   torch.cat(u_rows, dim=-1))
+            elif kernel:
+                nx = horizon * m
+                qp = BoxQP(P=p_qp, q=q_qp,
+                           l=lo.expand(p_qp.shape[:-2] + (nx,)),
+                           u=hi.expand(p_qp.shape[:-2] + (nx,)))
             else:
                 qp = condensed_qp(pred, z_qp, yr, qbar, rbar, lo, hi)
         new_kkt = kkt_prev
@@ -565,7 +595,6 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             zeros_x = torch.zeros_like(qp.q)
             x0 = warm_x if cfg.qp_warm_start in ("full", "primal") else zeros_x
             y0 = warm_y if cfg.qp_warm_start == "full" else zeros_x
-            n_out = pred.f2.shape[-2]  # N*py
             if cfg.qp_kkt_refine > 0 and not isinstance(kkt_prev, tuple):
                 # the carried inverse (plain route only); what is carried
                 # is the inverse before the solver's bf16 rounding
@@ -575,7 +604,7 @@ def make_control_solver(cfg: EngineConfig, ref_fn: Callable[[int], Tensor],
             elif (cfg.qp_kkt_lowrank and cfg.qp_kkt_refine == 0
                     and cfg.qp_backend == "xla"
                     and terminal is None
-                    and n_out < horizon * m):
+                    and py < m):  # N py output rows, fewer than N m
                 kkt_inv = lowrank_kkt_inverse(pred.f2, qp.P, params.q_block,
                                               params.r_block, cfg)
                 sol = box_solver(qp.P, qp.q, qp.l, qp.u, x0, y0, kkt_inv)

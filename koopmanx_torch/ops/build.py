@@ -3,7 +3,8 @@
 Each ``koopmanx_torch/csrc/<name>.cu`` becomes
 ``koopmanx_torch/_build/lib<name>.so`` with a plain C interface that the
 wrappers load with ``ctypes``; a source built with preprocessor
-``defines`` (one width of ``dare_terminal.cu``) becomes one library for
+``defines`` (one width of ``dare_terminal.cu``, one shape of
+``qp_build.cu``) becomes one library for
 each set of them, ``lib<name>_<key><value>.so``; such a source names the
 defines it needs in :data:`REQUIRED_DEFINES`, and is built only with
 them. Nothing builds at import time; a library is rebuilt when its source
@@ -29,7 +30,9 @@ NVCC_FLAGS = [
 
 # sources built only with these defines (one library a width), and so
 # left out of build_all's default list
-REQUIRED_DEFINES = {"dare_terminal": ("KX_DARE_NZ",)}
+REQUIRED_DEFINES = {"dare_terminal": ("KX_DARE_NZ",),
+                    "qp_build": ("KX_QPB_NZ", "KX_QPB_M", "KX_QPB_PY",
+                                 "KX_QPB_N")}
 
 _lock = threading.Lock()
 

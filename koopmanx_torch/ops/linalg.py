@@ -68,15 +68,18 @@ def _gj_tables(n: int, device: torch.device):
     """Data-independent tables of :func:`gj_inverse`, built once per width
     and device (read-only): for each column j the one-hot row mask
     ``rows == j``, and an (n - j, n) table whose row q is the row order
-    that swaps rows j and j + q (row 0: no swap)."""
-    rows = torch.arange(n)
-    eq, swaps = [], []
-    for j in range(n):
-        eq.append((rows == j).to(device))
-        perms = rows.repeat(n - j, 1)
-        for q in range(1, n - j):
-            perms[q, j], perms[q, j + q] = j + q, j
-        swaps.append(perms.to(device))
+    that swaps rows j and j + q (row 0: no swap). Built as normal tensors
+    even under ``torch.inference_mode``: a cached inference tensor would
+    refuse a later caller that records a gradient."""
+    with torch.inference_mode(False):
+        rows = torch.arange(n)
+        eq, swaps = [], []
+        for j in range(n):
+            eq.append((rows == j).to(device))
+            perms = rows.repeat(n - j, 1)
+            for q in range(1, n - j):
+                perms[q, j], perms[q, j + q] = j + q, j
+            swaps.append(perms.to(device))
     return eq, swaps
 
 

@@ -152,6 +152,19 @@ def test_gj_inverse_matches_jax(n):
     assert not np.isfinite(out[1]).all()
 
 
+def test_gj_tables_built_under_inference_mode_serve_autograd():
+    """``gj_inverse``'s cached tables, first built inside
+    ``torch.inference_mode`` (as the engine's loop runs), still serve a
+    later call that records a gradient."""
+    tlinalg._gj_tables.cache_clear()
+    a = torch.tensor(gj_inputs(10, 10)[:1])
+    with torch.inference_mode():
+        tlinalg.gj_inverse(a)
+    a.requires_grad_(True)
+    tlinalg.gj_inverse(a).sum().backward()
+    assert torch.isfinite(a.grad).all()
+
+
 def test_gj_solve_matches_jax():
     """``gj_solve(a, b)`` = ``gj_inverse(a) @ b`` against JAX's, 1e-12
     relative, NaN pattern equal; a leading batch axis of its own on
